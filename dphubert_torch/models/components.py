@@ -1,4 +1,4 @@
-"""Building blocks of wav2vec 2.0 / HuBERT as ``nn.Module``s (serving path).
+"""Building blocks of wav2vec 2.0 / HuBERT as ``nn.Module``s.
 
 The attribute tree of every module reproduces the portable state-dict keys
 exactly (``feature_extractor.conv_layers.0.conv.weight`` and so on), so a
@@ -14,9 +14,12 @@ Numerics follow the TPU package's component layer:
   * attention runs in a hand-written CUDA kernel on the card and in the
     kernel's plain version on the CPU (see ``attention_route``).
 
-This slice serves: no dropout, no LayerDrop, no HardConcrete sampling.  The
-gate parameters (``log_alpha``) are held so gated checkpoints load strictly;
-with no gates passed, as in the TPU package's eval path, none is applied.
+Training (the distill step) passes a ``torch.Generator`` for dropout and a
+nested dict of HardConcrete gates, keyed as the TPU package's gate tree
+(``models/gates.py``); both are applied where the TPU package applies them.
+With no generator there is no dropout, and with no gates none is applied,
+as in the TPU package's eval path.  LayerDrop is not ported (it only acts in
+``forward(training=True)``, which raises).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..configs import (
     ModelSpec,
 )
 from ..ops.flash_attention import flash_attention
-from ..ops.packed_attention import packed_attention, packed_num_groups
+from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
 
 LN_EPS = 1e-5
 
@@ -72,6 +75,25 @@ def _layer_norm(x, weight, bias, dim: int = -1, affine_dim: Optional[int] = None
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=gen)
+
+
+def _dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout drawn from ``generator`` (on x's device); the
+    identity when there is no generator (eval) or the rate is 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def _gate(gates: Optional[dict], *path: str):
+    """``gates[path[0]][path[1]]...`` or None where the tree has no entry."""
+    for key in path:
+        if not gates:
+            return None
+        gates = gates.get(key)
+    return gates
 
 
 def _output_length(length, kernel_size: int, stride: int):
@@ -134,8 +156,8 @@ class Conv1d(nn.Module):
 
 
 class HardConcrete(nn.Module):
-    """Holds a HardConcrete gate's ``log_alpha``; sampling and the eval-mode
-    mask come with the gates slice (ROADMAP queue 1, "Gates and size")."""
+    """Holds a HardConcrete gate's ``log_alpha``; the masks are sampled and
+    compiled outside the layers (``models/gates.py``) and passed in."""
 
     def __init__(self, n_in: int, init_mean: float):
         super().__init__()
@@ -164,8 +186,9 @@ class ConvLayerBlock(nn.Module):
         if spec.prune_channels:
             self.hard_concrete = HardConcrete(spec.out_channels, 0.01)
 
-    def forward(self, x, length):
-        """x: (B, C_in, T) -> ((B, C_out, T'), length')."""
+    def forward(self, x, length, gate=None):
+        """x: (B, C_in, T) -> ((B, C_out, T'), length'); ``gate`` scales the
+        output channels (the TPU package's conv channel gate)."""
         spec = self.spec
         bias = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
         y = F.conv1d(x, self.conv.weight.to(x.dtype), bias, stride=spec.stride)
@@ -178,6 +201,8 @@ class ConvLayerBlock(nn.Module):
             # transposed LayerNorm: over the channels at every frame
             y = _layer_norm(y, self.layer_norm.weight, self.layer_norm.bias, dim=1)
         y = F.gelu(y)
+        if gate is not None:
+            y = y * gate.to(y.dtype)[None, :, None]
         if length is not None:
             length = _output_length(length, spec.kernel_size, spec.stride)
         return y, length
@@ -198,10 +223,10 @@ class FeatureExtractor(nn.Module):
         with torch.no_grad():
             self.dummy_weight.fill_(1.0)
 
-    def forward(self, wave, lengths):
+    def forward(self, wave, lengths, gates=None):
         x = wave[:, None, :]
-        for layer in self.conv_layers:
-            x, lengths = layer(x, lengths)
+        for i, layer in enumerate(self.conv_layers):
+            x, lengths = layer(x, lengths, _gate(gates, "conv_layers", str(i)))
         x = x.transpose(1, 2)
         return x * self.dummy_weight.to(x.dtype), lengths
 
@@ -219,15 +244,16 @@ def output_lengths(spec: ModelSpec, lengths):
 
 
 class FeatureProjection(nn.Module):
-    """LayerNorm -> Linear(in -> embed)."""
+    """LayerNorm -> Linear(in -> embed) -> Dropout."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, dropout: float):
         super().__init__()
+        self.dropout = dropout
         self.layer_norm = Norm(in_features)
         self.projection = Linear(in_features, out_features)
 
-    def forward(self, x):
-        return self.projection(self.layer_norm(x))
+    def forward(self, x, generator=None):
+        return _dropout(self.projection(self.layer_norm(x)), self.dropout, generator)
 
 
 class WeightNormConv(nn.Module):
@@ -304,32 +330,56 @@ class SelfAttention(nn.Module):
         if spec.prune_layer:
             self.hard_concrete_for_layer = HardConcrete(1, 0.01)
 
-    def forward(self, x, lengths):
-        """x: (B, L, E); lengths: int32 (B,) valid frames or None."""
+    def forward(self, x, lengths, gates=None, generator=None):
+        """x: (B, L, E); lengths: int32 (B,) valid frames or None; gates:
+        ``{"heads": (H,), "layer": (1,)}`` entries or None; ``generator``
+        turns attention-probability dropout on (in the kernel)."""
         B, L, _ = x.shape
         H, D = self.spec.num_heads, self.spec.head_dim
         scale = D ** -0.5
+        rate = self.spec.dropout if generator is not None else 0.0
         # one fused (B*L, E) @ (E, 3*H*D) product; q, k, v stay views of it
         w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
         b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
         qkv = F.linear(x, w.to(x.dtype), b.to(x.dtype))
-        q, k, v = qkv.split(H * D, dim=-1)
         if attention_route(L, H, D) == "packed":
-            out = packed_attention(q, k, v, lengths, num_heads=H, scale=scale)
+            seed = None
+            if rate > 0.0:  # one int32 on the device: the kernels read it there
+                seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
+                                     device=x.device).to(torch.int32)
+            out = packed_attention_qkv(qkv, lengths, num_heads=H, scale=scale,
+                                       dropout_rate=rate, seed=seed)
         else:
+            if rate > 0.0 or (torch.is_grad_enabled() and qkv.requires_grad):
+                raise NotImplementedError(
+                    f"attention at L={L} with {H} heads x {D} takes the flash "
+                    "route, whose backward kernels and dropout are not ported "
+                    "yet (ROADMAP queue 2, item 2); it serves only"
+                )
+            q, k, v = qkv.split(H * D, dim=-1)
+
             def heads(t):  # (B, L, H*D) view -> (B, H, L, D) view
                 return t.view(B, L, H, D).transpose(1, 2)
 
             out, _, _ = flash_attention(heads(q), heads(k), heads(v), lengths, scale=scale)
             out = out.transpose(1, 2).reshape(B, L, H * D)
-        return self.out_proj(out)
+        head_gate = _gate(gates, "heads")
+        if head_gate is not None:
+            out = (out.view(B, L, H, D) * head_gate.to(out.dtype)[:, None]).view(B, L, H * D)
+        out = self.out_proj(out)
+        layer_gate = _gate(gates, "layer")
+        if layer_gate is not None:
+            out = out * layer_gate.to(out.dtype)
+        return out
 
 
 class FeedForward(nn.Module):
-    """Linear -> GELU -> Linear."""
+    """Linear -> GELU -> Dropout -> [intermediate gate] -> Linear -> Dropout
+    -> [layer gate]."""
 
     def __init__(self, spec: FeedForwardSpec):
         super().__init__()
+        self.spec = spec
         self.intermediate_dense = Linear(spec.io_features, spec.intermediate_features)
         self.output_dense = Linear(spec.intermediate_features, spec.io_features)
         if spec.prune_intermediate:
@@ -339,8 +389,17 @@ class FeedForward(nn.Module):
         if spec.prune_layer:
             self.hard_concrete_for_layer = HardConcrete(1, 0.01)
 
-    def forward(self, x):
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+    def forward(self, x, gates=None, generator=None):
+        y = _dropout(F.gelu(self.intermediate_dense(x)), self.spec.intermediate_dropout,
+                     generator)
+        interm_gate = _gate(gates, "intermediate")
+        if interm_gate is not None:
+            y = y * interm_gate.to(y.dtype)
+        y = _dropout(self.output_dense(y), self.spec.output_dropout, generator)
+        layer_gate = _gate(gates, "layer")
+        if layer_gate is not None:
+            y = y * layer_gate.to(y.dtype)
+        return y
 
 
 class EncoderLayer(nn.Module):
@@ -351,24 +410,28 @@ class EncoderLayer(nn.Module):
     def __init__(self, spec: EncoderLayerSpec):
         super().__init__()
         self.layer_norm_first = spec.layer_norm_first
+        self.dropout = spec.dropout
         self.attention = SelfAttention(spec.attention) if spec.attention else None
         self.layer_norm = Norm(spec.embed_dim)
         self.feed_forward = FeedForward(spec.feed_forward) if spec.feed_forward else None
         self.final_layer_norm = Norm(spec.embed_dim)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, gates=None, generator=None):
+        att_gates = _gate(gates, "attention")
+        ff_gates = _gate(gates, "feed_forward")
         if self.attention is not None:
             residual = x
             if self.layer_norm_first:
                 x = self.layer_norm(x)
-            x = residual + self.attention(x, lengths)
+            x = self.attention(x, lengths, att_gates, generator)
+            x = residual + _dropout(x, self.dropout, generator)
         if self.layer_norm_first:
             if self.feed_forward is not None:
-                x = x + self.feed_forward(self.final_layer_norm(x))
+                x = x + self.feed_forward(self.final_layer_norm(x), ff_gates, generator)
         else:
             x = self.layer_norm(x)
             if self.feed_forward is not None:
-                x = x + self.feed_forward(x)
+                x = x + self.feed_forward(x, ff_gates, generator)
             x = self.final_layer_norm(x)
         return x
 
@@ -377,24 +440,27 @@ class Transformer(nn.Module):
     def __init__(self, spec: ModelSpec):
         super().__init__()
         self.layer_norm_first = spec.transformer_layer_norm_first
+        self.dropout = spec.dropout
         self.pos_conv_embed = ConvolutionalPositionalEmbedding(
             spec.embed_dim, spec.pos_conv_kernel, spec.pos_conv_groups
         )
         self.layer_norm = Norm(spec.embed_dim)
         self.layers = nn.ModuleList(EncoderLayer(l) for l in spec.layers)
 
-    def _preprocess(self, x):
+    def _preprocess(self, x, generator=None):
         x = x + self.pos_conv_embed(x)
         if self.layer_norm_first:
             x = self.layer_norm(x)
-        return x
+        return _dropout(x, self.dropout, generator)
 
-    def get_intermediate_outputs(self, x, lengths, num_layers: Optional[int] = None):
-        """Every layer's hidden state (no final LayerNorm)."""
-        x = self._preprocess(x)
+    def get_intermediate_outputs(self, x, lengths, num_layers: Optional[int] = None,
+                                 gates=None, generator=None):
+        """Every layer's hidden state (no final LayerNorm), never applying
+        LayerDrop: distillation sees all layers, as in the TPU package."""
+        x = self._preprocess(x, generator)
         outs: List[torch.Tensor] = []
-        for layer in self.layers:
-            x = layer(x, lengths)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, lengths, _gate(gates, "layers", str(i)), generator)
             outs.append(x)
             if num_layers is not None and len(outs) >= num_layers:
                 break
@@ -412,13 +478,16 @@ class Transformer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        self.feature_projection = FeatureProjection(spec.encoder_in_features, spec.embed_dim)
+        self.feature_projection = FeatureProjection(
+            spec.encoder_in_features, spec.embed_dim, spec.projection_dropout
+        )
         self.transformer = Transformer(spec)
 
-    def _preprocess(self, features, lengths) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _preprocess(self, features, lengths, generator=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Projection; padded frames zeroed; int32 lengths for the kernels'
         key mask (the place of the additive -10000 mask)."""
-        x = self.feature_projection(features)
+        x = self.feature_projection(features, generator)
         if lengths is None:
             return x, None
         L = x.shape[1]
@@ -426,10 +495,13 @@ class Encoder(nn.Module):
         x = x.masked_fill(pad[:, :, None], 0.0)
         return x, lengths.to(torch.int32)
 
-    def extract_features(self, features, lengths, num_layers: Optional[int] = None):
+    def extract_features(self, features, lengths, num_layers: Optional[int] = None,
+                         gates=None, generator=None):
         """``[projected input] + per-layer outputs``."""
-        x, lengths = self._preprocess(features, lengths)
-        return [x] + self.transformer.get_intermediate_outputs(x, lengths, num_layers)
+        x, lengths = self._preprocess(features, lengths, generator)
+        return [x] + self.transformer.get_intermediate_outputs(
+            x, lengths, num_layers, gates, generator
+        )
 
     def forward(self, features, lengths):
         x, lengths = self._preprocess(features, lengths)

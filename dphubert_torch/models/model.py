@@ -17,6 +17,7 @@ from torch import nn
 
 from ..configs import ModelSpec, config_from_spec, spec_from_config
 from . import components
+from .gates import has_gates
 
 _WAVLM_TODO = (
     "WavLM is not ported yet: its seven attention kernels are queued in "
@@ -68,28 +69,32 @@ class Wav2Vec2Model(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
-    def _check_mode(self, training: bool) -> None:
-        if training:
-            raise NotImplementedError(
-                "training=True (dropout, LayerDrop, HardConcrete gates) comes "
-                "with the distill slice (ROADMAP queue 1)"
-            )
-
     def extract_features(
         self,
         waveforms: torch.Tensor,
         lengths: Optional[torch.Tensor] = None,
         num_layers: Optional[int] = None,
         *,
+        gates: Optional[dict] = None,
         training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         """Per-layer hidden states (index 0 = projected CNN features) and
-        the valid output lengths."""
-        self._check_mode(training)
+        the valid output lengths.
+
+        ``gates`` is the nested HardConcrete gate dict of
+        ``models/gates.py`` (sampled for training, compiled for eval), or
+        None for no gates.  ``training=True`` turns dropout on, drawn from
+        ``generator`` (on the waveforms' device; no generator, no dropout, as
+        the TPU package without an rng); a gated spec must then get gates.
+        LayerDrop never applies here: distillation sees every layer."""
+        if gates is None and training and has_gates(self.spec):
+            raise ValueError("spec has HardConcrete gates; pass gates= (see sample_gates)")
+        generator = generator if training else None
         if self.spec.normalize_waveform:
             waveforms = components.normalize_waveform(waveforms, lengths)
-        x, lengths = self.feature_extractor(waveforms, lengths)
-        return self.encoder.extract_features(x, lengths, num_layers), lengths
+        x, lengths = self.feature_extractor(waveforms, lengths, gates)
+        return self.encoder.extract_features(x, lengths, num_layers, gates, generator), lengths
 
     def forward(
         self,
@@ -98,8 +103,14 @@ class Wav2Vec2Model(nn.Module):
         *,
         training: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Final encoder output (through the aux head if configured)."""
-        self._check_mode(training)
+        """Final encoder output (through the aux head if configured), in
+        eval mode."""
+        if training:
+            raise NotImplementedError(
+                "forward(training=True) needs LayerDrop (the TPU package's "
+                "components.py:642-652), which is not ported: the distill step "
+                "runs extract_features (ROADMAP queue 1, item 7)"
+            )
         if self.spec.normalize_waveform:
             waveforms = components.normalize_waveform(waveforms, lengths)
         x, lengths = self.feature_extractor(waveforms, lengths)

@@ -2,8 +2,9 @@
 
 Each source under ``dphubert_torch/csrc/`` compiles to one shared library
 with a plain C interface in ``build/kernels/`` at the root of the checkout.
-The library's name carries a hash of its source, so an edited source builds
-anew and an unchanged one is loaded from the earlier build.  Nothing here
+The library's name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source builds anew and an unchanged one is
+loaded from the earlier build.  Nothing here
 runs at import time: the CPU tests import every module on a machine that
 has no ``nvcc``.
 """
@@ -51,6 +52,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -3,11 +3,12 @@
 ``flash_attention`` launches ``flash_attention_fwd`` of
 ``csrc/attention_fwd.cu`` on CUDA tensors and runs
 ``flash_attention_reference`` on CPU tensors.  Besides ``out`` it returns
-the row max ``m`` and the row sum ``l`` as (B, H, L) fp32 tensors, which the
-backward kernels of the training slice will read.  The model takes this
-kernel for the shapes ``packed_num_groups`` refuses: padded lengths past
-1024 frames (clips longer than 20 s) and head counts whose width the TPU
-kernel could not group.
+the row max ``m`` and the row sum ``l`` as (B, H, L) fp32 tensors, which its
+backward kernels will read once they are ported (ROADMAP queue 2, item 2);
+until then it is forward-only and takes no dropout, on the CPU as on the
+card.  The model takes this kernel for the shapes ``packed_num_groups``
+refuses: padded lengths past 1024 frames (clips longer than 20 s) and head
+counts whose width the TPU kernel could not group.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from .attention_common import DTYPE_CODES, NEG_INF, check_kernel_inputs
+from .attention_common import DTYPE_CODES, NEG_INF, check_kernel_inputs, forward_only
 
 
 def flash_attention_reference(
@@ -72,6 +73,7 @@ def flash_attention(
     B, H, L, D = q.shape
     if scale is None:
         scale = D ** -0.5
+    forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths, scale=scale)
     check_kernel_inputs(q, k, v, lengths, D)

@@ -49,6 +49,21 @@ def state_dict_from_jax(tree_or_flat) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
 
 
+def train_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The TPU package's training parameters ``{"student", "projs",
+    ["lambdas"]}`` (its ``TrainState.params``, leaves as arrays) -> flat
+    tensors named as ``TrainState.named_params`` names them
+    (``student.<state-dict key>``, ``projs.groups.0.weight``,
+    ``lambdas.lambda1``), for ``TrainState.load_params``."""
+    out = {f"student.{k}": v for k, v in state_dict_from_jax(params["student"]).items()}
+    for group in ("projs", "lambdas"):
+        if group in params:
+            flat = flatten_params(params[group], prefix=f"{group}.")
+            out.update({k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+                        for k, v in flat.items()})
+    return out
+
+
 def init_params(spec: ModelSpec, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """A randomly initialised state dict for ``spec`` (on the CPU)."""
     from .models.model import Wav2Vec2Model

@@ -115,8 +115,13 @@ def test_wavlm_and_training_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.wav2vec2_model(device="cpu", **wavlm_cfg)
     model = pt.wav2vec2_model(device="cpu", **CONFIGS["tiny_post_norm"])
+    # forward(training=True) needs LayerDrop, which is not ported; the
+    # distill path (extract_features) trains
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.extract_features(torch.zeros(1, 800), training=True)
+        model.forward(torch.zeros(1, 800), training=True)
+    outs, _ = model.extract_features(torch.zeros(1, 800), training=True,
+                                     generator=torch.Generator().manual_seed(0))
+    assert len(outs) == 4
 
 
 def test_entry_points_default_to_cuda():
