@@ -6,26 +6,35 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``dphubert_torch/csrc/`` with nvcc (one
-process per source, started together) and drives both paths of the port at
+process per source, started together) and drives every path of the port at
 full width with random weights from seeds:
 
 * serving: HuBERT Base and the pruned student of
   ``docs/pruned_config_r2.json`` through the ``Predictor``;
-* training: the HuBERT Base stage-1 distill step (teacher ``hubert_base``,
-  student ``hubert_base`` with all five prune flags, ``DistillConfig``
-  defaults) through ``init_train_state`` / ``make_train_step``, in bf16 at
-  B = 16 clips of 15 s with dropout on; before that, one step's loss,
-  metrics and every parameter's gradient are held card against CPU in fp32
-  and bf16 against fp32 on the card (dropout off, the same injected gates).
+* the stage-1 distill step (teacher ``hubert_base``, student ``hubert_base``
+  with all five prune flags, ``DistillConfig`` defaults) in bf16 at B = 16
+  clips of 15 s with dropout on; before that, one step's loss, metrics and
+  every parameter's gradient are held card against CPU in fp32 and bf16
+  against fp32 on the card (dropout off, the same injected gates);
+* the final-distill step (``use_reg=False``) of a student with the head
+  counts of ``docs/pruned_config_r2.json`` and every attention sublayer on,
+  whose 11- and 9-head layers take the flash route at the loader's top rung
+  (L = 780): held card against CPU and bf16 against fp32 as above, then
+  timed in bf16 at B = 5 x 15.62 s;
+* the four-stage recipe through the port's CLI functions on synthetic WAVs:
+  prepare_data, distill (and a deadline stop, exit 76, resumed), prune,
+  final_distill of the pruned student and of the r2-heads student,
+  save_final_ckpt, and the final checkpoint served.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes its path gives it, timed beside its bound and a library call, and
 each path is checked to have gone through its kernels (launch counts, set
-to 0 just before the path and read just after).  Each phase prints JSON
-lines; any failure raises and the script exits non-zero.  The last three
-lines are the card's name and power limit as nvidia-smi prints them, the
-kernels line, and ``{"ok": true, "device": {...}}``.  It takes 60-90 s on an
-H100 (build about 10 s, kernel checks, both paths).
+to 0 just before the path and read just after, exactly what the routing
+rule predicts).  Each phase prints JSON lines; any failure raises and the
+script exits non-zero.  The last three lines are the card's name and power
+limit as nvidia-smi prints them, the kernels line, and ``{"ok": true,
+"device": {...}}``.  The pipeline's files go to ``build/smoke_pipeline/``
+and are removed at the end.
 
 fp32 on the card is compared at full fp32: TF32 is switched off for matmuls
 and cuDNN convolutions below, and the matmul precision is "highest".
@@ -35,7 +44,9 @@ Without a CUDA card the script exits with code 1 and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -53,7 +64,21 @@ from dphubert_torch.models.components import attention_route, output_lengths
 from dphubert_torch.models.gates import gate_paths
 from dphubert_torch.models.hardconcrete import EPS
 from dphubert_torch.ops import _build
-from dphubert_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from dphubert_torch.cli import distill as cli_distill
+from dphubert_torch.cli import final_distill as cli_final_distill
+from dphubert_torch.cli import load_dpmodel as cli_load_dpmodel
+from dphubert_torch.cli import prepare_data as cli_prepare_data
+from dphubert_torch.cli import prune as cli_prune
+from dphubert_torch.cli import save_final_ckpt as cli_save_final_ckpt
+from dphubert_torch.data import load_audio
+from dphubert_torch.interop.torch_ckpt import load_checkpoint, load_model, save_checkpoint
+from dphubert_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+)
 from dphubert_torch.ops.packed_attention import (
     _launch_fwd,
     packed_attention,
@@ -126,7 +151,38 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                 f"{TPU_OPS}/packed_attention.py:322"),
     "packed_attention_bwd_dkv": ("dphubert_torch/csrc/attention_bwd.cu",
                                  f"{TPU_OPS}/packed_attention.py:339"),
+    "flash_attention_bwd_dq": ("dphubert_torch/csrc/attention_bwd.cu",
+                               f"{TPU_OPS}/flash_attention.py:444"),
+    "flash_attention_bwd_dkv": ("dphubert_torch/csrc/attention_bwd.cu",
+                                f"{TPU_OPS}/flash_attention.py:402"),
 }
+WRAPPERS = {
+    "packed_attention_fwd": packed_attention,
+    "flash_attention_fwd": flash_attention,
+    "packed_attention_bwd_dq": packed_attention_bwd_dq,
+    "packed_attention_bwd_dkv": packed_attention_bwd_dkv,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+}
+# the loader's top rung (cli/common.py: rungs from 32,000 to 250,000
+# samples, 12 shapes): every clip of 249,920 to 250,000 samples lands there,
+# is cropped to 249,920 (15.62 s, L = 780 frames) and batched 5 to a batch
+# at the default 87.5 s per batch; longer clips are dropped by max_len
+TOP_RUNG = 249_920
+FINAL_B = 5
+R2_CONFIG = REPO / "docs" / "pruned_config_r2.json"
+
+
+def r2_all_attention_config() -> dict:
+    """``docs/pruned_config_r2.json`` with every attention sublayer kept:
+    its head counts (12, 12, 12, 12, 12, 12, 11, 12, 8, 10, 10, 9) are the
+    irregular ones a pruned student gets, but the file itself switches
+    attention off in layers 4-9 and 11, so as it stands no layer of it
+    takes the flash route.  With every sublayer on, layers 6 (11 heads) and
+    11 (9 heads) do at L = 780."""
+    cfg = json.loads(R2_CONFIG.read_text())
+    cfg["encoder_use_attention"] = [True] * cfg["encoder_num_layers"]
+    return cfg
 
 
 def emit(obj) -> None:
@@ -431,31 +487,131 @@ def phase_train_kernels(spec) -> dict:
     return results
 
 
+def _flash_cases():
+    """(label, B, L, H, lengths): the final-distill shapes of the flash
+    route (B = 5 clips of the top rung, L = 780, the 11- and 9-head layers
+    of a pruned student, no lengths as the training batches) and a masked
+    case."""
+    L = int(output_lengths(pt.spec_from_config(**r2_all_attention_config()),
+                           torch.tensor([TOP_RUNG]))[0])
+    masked = torch.tensor([L, 700, 512, 300, 64], dtype=torch.int32, device="cuda")
+    return [("final_distill", FINAL_B, L, 11, None), ("final_distill_9h", FINAL_B, L, 9, None),
+            ("masked", FINAL_B, L, 11, masked)]
+
+
+def phase_flash_kernels() -> dict:
+    """The flash route's kernels against their plain versions: the forward
+    with dropout 0.1, dq and dkv, on (B, H, L, D) views of a fused QKV
+    tensor (the model's strides), in fp32 and bf16."""
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    D = 64
+    scale = D ** -0.5
+    seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
+    kw = dict(scale=scale, dropout_rate=DROPOUT, seed=seed)
+    for label, B, L, H, lengths in _flash_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
+            dout = torch.randn(B, H, L, D, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.view(B, L, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+            mask = None if lengths is None else key_mask(lengths, L)
+            common = {"path": "final_distill", "case": label, "dtype": dtype_name(dtype),
+                      "shape_BHLD": [B, H, L, D],
+                      "lengths": None if lengths is None else lengths.tolist(),
+                      "dropout": DROPOUT}
+            with torch.no_grad():
+                out, m, l = flash_attention(q, k, v, lengths, **kw)
+                want, wm, wl = flash_attention_reference(q, k, v, lengths, **kw)
+                torch.cuda.synchronize()
+                errs = rel_error(out, want, f"flash fwd {label} {dtype}", dtype)
+                stats = {"m_max_abs_err": (m - wm).abs().max().item(),
+                         "l_max_rel_err": ((l - wl).abs() / wl).max().item()}
+                check(stats["m_max_abs_err"] <= 1e-4 and stats["l_max_rel_err"] <= 1e-4,
+                      f"flash fwd {label} {dtype} statistics: {stats}")
+                bound, by = attention_bound_ms(B, L, H, D, lengths, dtype,
+                                               extra_out_bytes=2 * 4 * B * H * L)
+                row = {"phase": "kernel", "name": "flash_attention_fwd", **common, **errs, **stats,
+                       "ms": time_ms(lambda: flash_attention(q, k, v, lengths, **kw)),
+                       "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, lengths, **kw),
+                                           reps=5),
+                       "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask, dropout_p=DROPOUT, scale=scale)),
+                       "library": "scaled_dot_product_attention forward, dropout_p=0.1",
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                results[("flash_attention_fwd", label, dtype)] = row
+
+                dq, di = flash_attention_bwd_dq(q, k, v, out, dout, m, l, lengths, **kw)
+                dk, dv = flash_attention_bwd_dkv(q, k, v, out, dout, m, l, di, lengths, **kw)
+                plain_bwd = lambda: flash_attention_bwd_reference(q, k, v, out, dout, lengths, **kw)
+                wq, wk, wv = plain_bwd()
+                torch.cuda.synchronize()
+                plain_ms = time_ms(plain_bwd, reps=5)
+            x = qkv.detach().requires_grad_()
+            xq, xk, xv = (t.view(B, L, H, D).transpose(1, 2) for t in x.split(H * D, dim=-1))
+            y = F.scaled_dot_product_attention(xq, xk, xv, attn_mask=mask, scale=scale)
+            library_ms = time_ms(lambda: torch.autograd.grad(y, x, dout, retain_graph=True))
+            del x, y
+            for name, pairs, kind in (("flash_attention_bwd_dq", (("dq", dq, wq),), "dq"),
+                                      ("flash_attention_bwd_dkv",
+                                       (("dk", dk, wk), ("dv", dv, wv)), "dkv")):
+                errs = {what: rel_error(got, ref, f"flash {what} {label} {dtype}", dtype)
+                        for what, got, ref in pairs}
+                if kind == "dq":
+                    run = lambda: flash_attention_bwd_dq(q, k, v, out, dout, m, l, lengths, **kw)
+                else:
+                    run = lambda: flash_attention_bwd_dkv(q, k, v, out, dout, m, l, di, lengths, **kw)
+                bound, by = backward_bound_ms(kind, B, L, H, D, lengths, dtype)
+                with torch.no_grad():
+                    ms = time_ms(run)
+                row = {"phase": "kernel", "name": name, **common,
+                       "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                       "by_output": errs, "tolerance": f"{REL_TOL[dtype]} x max |plain|",
+                       "ms": ms, "plain_ms": plain_ms,
+                       "plain": "flash_attention_bwd_reference (dq, dk and dv together)",
+                       "library_ms": library_ms,
+                       "library": "scaled_dot_product_attention backward without dropout "
+                                  "(dq, dk and dv together)",
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                results[(name, label, dtype)] = row
+            del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
+            torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: serving through the Predictor
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(spec, L: int) -> dict:
-    counts = {"packed_attention_fwd": 0, "flash_attention_fwd": 0}
-    for layer in spec.layers:
-        if layer.attention is not None:
-            route = attention_route(L, layer.attention.num_heads, layer.attention.head_dim)
-            counts[f"{route}_attention_fwd"] += 1
-    return counts
-
-
 def launch_counts() -> dict:
-    return {"packed_attention_fwd": packed_attention.launches,
-            "flash_attention_fwd": flash_attention.launches,
-            "packed_attention_bwd_dq": packed_attention_bwd_dq.launches,
-            "packed_attention_bwd_dkv": packed_attention_bwd_dkv.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in (packed_attention, flash_attention, packed_attention_bwd_dq,
-               packed_attention_bwd_dkv):
+    for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def model_launches(spec, L: int, backward: bool) -> dict:
+    """Kernel launches of one pass of a model at L frames, from the routing
+    rule: a forward per attention layer, and dq and dkv with ``backward``."""
+    counts = dict.fromkeys(WRAPPERS, 0)
+    for layer in spec.layers:
+        if layer.attention is None:
+            continue
+        route = attention_route(L, layer.attention.num_heads, layer.attention.head_dim)
+        counts[f"{route}_attention_fwd"] += 1
+        if backward:
+            counts[f"{route}_attention_bwd_dq"] += 1
+            counts[f"{route}_attention_bwd_dkv"] += 1
+    return counts
+
+
+def add_counts(*terms) -> dict:
+    """sum of n x counts over (n, counts) terms"""
+    return {k: sum(n * c[k] for n, c in terms) for k in WRAPPERS}
 
 
 def per_layer_card_vs_cpu(model, cpu_model, clips) -> float:
@@ -483,7 +639,7 @@ def phase_slice(label: str, model) -> dict:
     counts = {}
     for batch, T in ((clips1, 16 * SR), (clips2, 26 * SR)):
         L = int(output_lengths(spec, torch.tensor([T]))[0])
-        want = expected_launches(spec, L)
+        want = model_launches(spec, L, backward=False)
         before = launch_counts()
         preds[torch.bfloat16].extract(batch)
         torch.cuda.synchronize()
@@ -557,52 +713,45 @@ def gate_draws(spec, student, seed: int) -> dict:
     return u
 
 
-def phase_train_check() -> dict:
-    """One distill step's loss, metrics and gradients at full width on a
-    small batch (2 clips of 2 s, lengths 2 s and 1.5 s), dropout off, the
-    same gate draws everywhere: (a) fp32 on the card against the CPU, (b)
-    bf16 against fp32 on the card."""
-    teacher, student = distill_models("cuda", **NO_DROPOUT)
-    u = gate_draws(student.spec, student, seed=3)
-    rng = np.random.default_rng(4)
-    wave = (0.1 * rng.standard_normal((2, 32000))).astype(np.float32)
-    lengths = np.array([32000, 24000], np.int32)
-    batch = (wave, lengths)
+def step_check(label: str, teacher, student, cfg: DistillConfig, batch, gate_u=None) -> dict:
+    """One distill step's loss, metrics and gradients at full width, dropout
+    off: (a) fp32 on the card against the CPU, (b) bf16 against fp32 on the
+    card, with the same inputs (and gate draws) everywhere."""
     out = {}
     for device in ("cuda", "cpu"):
         t = teacher if device == "cuda" else copy.deepcopy(teacher).to("cpu")
-        state, _ = init_train_state(student=student, cfg=DistillConfig(),
-                                    teacher_embed_dim=768, device=device)
+        state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768,
+                                    device=device)
         t0 = time.perf_counter()
-        metrics, grads = make_grad_fn(t, DistillConfig())(state, batch, gate_u=u)
+        metrics, grads = make_grad_fn(t, cfg)(state, batch, gate_u=gate_u)
         torch.cuda.synchronize()
         out[device] = ({k: v.item() for k, v in metrics.items()},
                        {k: g.detach().cpu() for k, g in grads.items()},
                        time.perf_counter() - t0)
+        del state, t
     (mc, gc, sec_c), (mh, gh, sec_h) = out["cuda"], out["cpu"]
     metric_err = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
     for k in mh:
-        check(np.isfinite(mc[k]), f"train fp32: metric {k} not finite")
+        check(np.isfinite(mc[k]), f"{label} fp32: metric {k} not finite")
         check(abs(mc[k] - mh[k]) <= TRAIN_FP32_METRIC_TOL * abs(mh[k]) + 1e-6,
-              f"train fp32 card vs CPU: {k} {mc[k]} vs {mh[k]}")
+              f"{label} fp32 card vs CPU: {k} {mc[k]} vs {mh[k]}")
     global_norm = torch.cat([g.flatten() for g in gh.values()]).double().norm().item()
     grad_err, zero = {}, {}
     for k, g in gh.items():
         norm, diff = g.double().norm().item(), (gc[k] - g).double().norm().item()
         if norm <= 1e-6 * global_norm:
             zero[k] = diff / global_norm
-            check(diff <= 1e-6 * global_norm, f"train fp32 card vs CPU: zero gradient of {k}: {diff}")
+            check(diff <= 1e-6 * global_norm, f"{label} fp32 card vs CPU: zero gradient of {k}: {diff}")
             continue
         grad_err[k] = diff / norm
         check(diff <= TRAIN_FP32_GRAD_TOL * norm,
-              f"train fp32 card vs CPU: gradient of {k}: relative error {grad_err[k]}")
+              f"{label} fp32 card vs CPU: gradient of {k}: relative error {grad_err[k]}")
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
 
     # (b) bf16 against fp32, on the card
-    state, _ = init_train_state(student=student, cfg=DistillConfig(), teacher_embed_dim=768,
-                                device="cuda")
-    cfg16 = DistillConfig(compute_dtype="bfloat16")
-    mb, gb = make_grad_fn(teacher, cfg16)(state, batch, gate_u=u)
+    state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, device="cuda")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    mb, gb = make_grad_fn(teacher, cfg16)(state, batch, gate_u=gate_u)
     mb = {k: v.item() for k, v in mb.items()}
     loss_rel = abs(mb["loss"] - mc["loss"]) / abs(mc["loss"])
     flat16 = torch.cat([gb[k].flatten().cpu() for k in gc]).double()
@@ -611,40 +760,65 @@ def phase_train_check() -> dict:
     per_param = {k: F.cosine_similarity(gb[k].flatten().cpu().double(), gc[k].flatten().double(),
                                         dim=0).item()
                  for k in grad_err}
-    check(loss_rel <= TRAIN_BF16_LOSS_TOL, f"train bf16 vs fp32: loss relative error {loss_rel}")
-    check(cos >= TRAIN_BF16_MIN_COS, f"train bf16 vs fp32: gradient cosine {cos}")
+    check(loss_rel <= TRAIN_BF16_LOSS_TOL, f"{label} bf16 vs fp32: loss relative error {loss_rel}")
+    check(cos >= TRAIN_BF16_MIN_COS, f"{label} bf16 vs fp32: gradient cosine {cos}")
+    return {"fp32_card_vs_cpu": {"metrics_rel_err_max": max(metric_err.values()),
+                                 "grad_rel_err_max": worst[0][1], "grad_rel_err_worst3": worst,
+                                 "n_params": len(gh), "n_zero_grad": len(zero),
+                                 "zero_grad_err_max_over_global_norm": max(zero.values(), default=0.0),
+                                 "card_s": sec_c, "cpu_s": sec_h,
+                                 "metric_tol": TRAIN_FP32_METRIC_TOL,
+                                 "grad_tol": TRAIN_FP32_GRAD_TOL},
+            "bf16_vs_fp32_card": {"loss_rel_err": loss_rel, "grad_cosine": cos,
+                                  "grad_cosine_min_per_param": min(per_param.values()),
+                                  "loss_tol": TRAIN_BF16_LOSS_TOL,
+                                  "min_cos": TRAIN_BF16_MIN_COS},
+            "loss_fp32": mc["loss"], "loss_bf16": mb["loss"]}
+
+
+def phase_train_check() -> dict:
+    """The stage-1 step (gated student) on a small batch: 2 clips of 2 s,
+    lengths 2 s and 1.5 s, the same gate draws everywhere."""
+    teacher, student = distill_models("cuda", **NO_DROPOUT)
+    u = gate_draws(student.spec, student, seed=3)
+    rng = np.random.default_rng(4)
+    wave = (0.1 * rng.standard_normal((2, 32000))).astype(np.float32)
+    batch = (wave, np.array([32000, 24000], np.int32))
     row = {"phase": "train_check", "batch": "2 clips of 2 s, lengths (32000, 24000)",
-           "fp32_card_vs_cpu": {"metrics_rel_err_max": max(metric_err.values()),
-                                "grad_rel_err_max": worst[0][1], "grad_rel_err_worst3": worst,
-                                "n_params": len(gh), "n_zero_grad": len(zero),
-                                "zero_grad_err_max_over_global_norm": max(zero.values(), default=0.0),
-                                "card_s": sec_c, "cpu_s": sec_h,
-                                "metric_tol": TRAIN_FP32_METRIC_TOL,
-                                "grad_tol": TRAIN_FP32_GRAD_TOL},
-           "bf16_vs_fp32_card": {"loss_rel_err": loss_rel, "grad_cosine": cos,
-                                 "grad_cosine_min_per_param": min(per_param.values()),
-                                 "loss_tol": TRAIN_BF16_LOSS_TOL,
-                                 "min_cos": TRAIN_BF16_MIN_COS},
-           "loss_fp32": mc["loss"], "loss_bf16": mb["loss"]}
+           **step_check("train", teacher, student, DistillConfig(), batch, gate_u=u)}
     emit(row)
     return row
 
 
-def phase_train(steps_per_segment: int = 3, segments: int = 3) -> dict:
-    """The training path: bf16 distill steps at B = 16 x 15 s with dropout
-    on (HuBERT Base's rates), DistillConfig defaults, a batch that stays on
-    the card (as bench.py).  Launch counts are set to 0 just before the
-    measured steps and read just after."""
-    teacher, student = distill_models("cuda")
-    cfg = DistillConfig(compute_dtype="bfloat16")
-    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5,
-                                 device="cuda")
-    del student
-    step = make_train_step(teacher, cfg, tx)
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    T = int(TRAIN_SECONDS * SR)
-    batch = (torch.randn(TRAIN_B, T, device="cuda", generator=gen), None)
-    audio_per_step = TRAIN_B * TRAIN_SECONDS
+def phase_final_distill_check() -> dict:
+    """The final-distill step (``use_reg=False``, no gates) of a pruned
+    student that takes the flash route: r2's head counts with every
+    attention sublayer kept (``r2_all_attention_config``), on one clip of
+    15.62 s (the loader's top rung, L = 780 frames, no lengths, as the
+    training batches), dropout off."""
+    teacher = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0),
+                             **NO_DROPOUT)
+    student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(7),
+                                **dict(r2_all_attention_config(), **NO_DROPOUT))
+    L = int(output_lengths(student.spec, torch.tensor([TOP_RUNG]))[0])
+    routes = [attention_route(L, l.attention.num_heads, 64) for l in student.spec.layers]
+    check(routes.count("flash") == 2, f"final-distill student routes at L={L}: {routes}")
+    rng = np.random.default_rng(8)
+    batch = ((0.1 * rng.standard_normal((1, TOP_RUNG))).astype(np.float32), None)
+    row = {"phase": "final_distill_check", "batch": f"1 clip of {TOP_RUNG} samples, L = {L}",
+           "student_routes": routes,
+           **step_check("final_distill", teacher, student, DistillConfig(use_reg=False), batch)}
+    emit(row)
+    return row
+
+
+def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: float,
+                steps_per_segment: int = 3, segments: int = 3):
+    """Two warm steps, then ``segments`` timed segments of
+    ``steps_per_segment`` steps ending in a synchronize; launch counts are
+    set to 0 just before the timed steps and read just after, and must be
+    exactly ``per_step`` per step.  Returns (state, row fields, metrics of
+    every step)."""
     torch.cuda.reset_peak_memory_stats()
     history = []
     for _ in range(2):  # warm: cuBLAS / cuDNN plans, allocator
@@ -662,30 +836,239 @@ def phase_train(steps_per_segment: int = 3, segments: int = 3) -> dict:
         seg.append(steps_per_segment * audio_per_step / (time.perf_counter() - t0))
     counts = launch_counts()
     n = steps_per_segment * segments
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {"packed_attention_fwd": 24, "flash_attention_fwd": 0,
-                "packed_attention_bwd_dq": 12, "packed_attention_bwd_dkv": 12}
     check(counts == {k: v * n for k, v in per_step.items()},
-          f"train launches {counts} over {n} steps, expected {per_step} per step")
+          f"{label} launches {counts} over {n} steps, expected {per_step} per step")
     hist = [{k: v.item() for k, v in m.items()} for m in history]
     for i, m in enumerate(hist):
         for k, v in m.items():
-            check(np.isfinite(v), f"train step {i}: {k} = {v}")
+            check(np.isfinite(v), f"{label} step {i}: {k} = {v}")
+    fields = {"dtype": "bfloat16", "audio_seconds_per_step": audio_per_step, "steps_timed": n,
+              "audio_sec_per_s": statistics.median(seg), "segments": seg,
+              "step_s": audio_per_step / statistics.median(seg),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
+              "launches_per_step": {k: v / n for k, v in counts.items()},
+              "loss": [hist[0]["loss"], hist[-1]["loss"]],
+              "grad_norm": [hist[0]["grad_norm"], hist[-1]["grad_norm"]]}
+    return state, fields, hist
+
+
+def phase_train() -> dict:
+    """The training path: bf16 distill steps at B = 16 x 15 s with dropout
+    on (HuBERT Base's rates), DistillConfig defaults, a batch that stays on
+    the card (as bench.py)."""
+    teacher, student = distill_models("cuda")
+    cfg = DistillConfig(compute_dtype="bfloat16")
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5,
+                                 device="cuda")
+    del student
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    T = int(TRAIN_SECONDS * SR)
+    batch = (torch.randn(TRAIN_B, T, device="cuda", generator=gen), None)
+    L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
+    per_step = add_counts((1, model_launches(teacher.spec, L, False)),
+                          (1, model_launches(state.student.spec, L, True)))
+    check(per_step["packed_attention_fwd"] == 24 and per_step["packed_attention_bwd_dq"] == 12
+          and per_step["flash_attention_fwd"] == 0, f"stage-1 launches per step {per_step}")
+    state, fields, hist = timed_steps("train", make_train_step(teacher, cfg, tx), state, batch,
+                                      per_step, TRAIN_B * TRAIN_SECONDS)
     gap = [m["sparsity_expected"] - m["sparsity_target"] for m in hist]
     lam1 = state.lambdas["lambda1"].item()
     # dual ascent: λ1's gradient is (s - t), so λ1 moves with its sign
     check(lam1 != 0.0 and np.sign(lam1) == np.sign(np.mean(gap)),
           f"λ1 = {lam1} after steps with mean s - t = {np.mean(gap)}")
     row = {"phase": "train", "model": "hubert_base teacher, gated hubert_base student",
-           "dtype": "bfloat16", "batch": [TRAIN_B, T], "audio_seconds_per_step": audio_per_step,
-           "steps_timed": n, "audio_sec_per_s": statistics.median(seg), "segments": seg,
-           "step_s": audio_per_step / statistics.median(seg),
-           "peak_memory_bytes": peak, "launches": counts,
-           "launches_per_step": {k: v / n for k, v in counts.items()},
-           "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]],
-           "loss": [hist[0]["loss"], hist[-1]["loss"]],
-           "grad_norm": [hist[0]["grad_norm"], hist[-1]["grad_norm"]]}
+           "batch": [TRAIN_B, T], **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
+    return row
+
+
+def phase_final_distill_step() -> dict:
+    """The final-distill step on the flash route: bf16, B = 5 clips of the
+    top rung (L = 780), the r2-heads student with every attention sublayer
+    (two flash layers), dropout on at HuBERT Base's rates, ``use_reg=False``,
+    a batch that stays on the card."""
+    teacher = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
+    student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(7),
+                                **r2_all_attention_config())
+    cfg = DistillConfig(use_reg=False, compute_dtype="bfloat16")
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=9,
+                                 device="cuda")
+    del student
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = (torch.randn(FINAL_B, TOP_RUNG, device="cuda", generator=gen), None)
+    L = int(output_lengths(teacher.spec, torch.tensor([TOP_RUNG]))[0])
+    per_step = add_counts((1, model_launches(teacher.spec, L, False)),
+                          (1, model_launches(state.student.spec, L, True)))
+    check({k: per_step[k] for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")} == dict.fromkeys(
+        ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), 2),
+          f"final-distill launches per step {per_step}")
+    state, fields, _ = timed_steps("final_distill", make_train_step(teacher, cfg, tx), state,
+                                   batch, per_step, FINAL_B * TOP_RUNG / SR)
+    row = {"phase": "final_distill_step",
+           "model": "hubert_base teacher, r2-heads student with every attention sublayer",
+           "batch": [FINAL_B, TOP_RUNG], "L": L, **fields}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the four-stage pipeline through the port's CLI functions
+# ---------------------------------------------------------------------------
+
+PIPE_DIR = REPO / "build" / "smoke_pipeline"
+
+
+def write_wav(path, wave: np.ndarray) -> None:
+    """16 kHz mono PCM16 WAV."""
+    pcm = (np.clip(wave, -1, 1) * 32767).astype("<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + (36 + len(pcm)).to_bytes(4, "little") + b"WAVE")
+        f.write(b"fmt " + (16).to_bytes(4, "little") + (1).to_bytes(2, "little")
+                + (1).to_bytes(2, "little") + SR.to_bytes(4, "little")
+                + (2 * SR).to_bytes(4, "little") + (2).to_bytes(2, "little")
+                + (16).to_bytes(2, "little"))
+        f.write(b"data" + len(pcm).to_bytes(4, "little") + pcm)
+
+
+def phase_pipeline() -> dict:
+    """run.sh's recipe on the card at full width: prepare_data, stage-1
+    distill (3 updates; again with a deadline in the past, exit 76, then
+    resumed to the end), prune, final distill of the pruned student (2
+    updates) and of the r2-heads student (3 updates, the flash route),
+    save_final_ckpt, and the final checkpoint served.  Each stage runs
+    through its CLI function with the default flags (bf16, 87.5 s per
+    batch: B = 5 x 249,920 samples) and --device cuda; launch counts are set
+    to 0 just before each stage and must be exactly what its steps and its
+    validation pass need."""
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    root, tsv = PIPE_DIR / "librispeech", PIPE_DIR / "tsv"
+    rng = np.random.default_rng(11)
+    n_train, n_valid = 3 * FINAL_B, FINAL_B
+    for sub, prefix, n in (("train-clean-100/1/2", "u", n_train), ("dev-clean/3/4", "d", n_valid)):
+        (root / sub).mkdir(parents=True)
+        for i in range(n):
+            samples = TOP_RUNG + int(rng.integers(0, 81))  # 15.62-15.625 s: the top rung
+            write_wav(root / sub / f"{prefix}{i:03d}.wav", 0.1 * rng.standard_normal(samples))
+    t0 = time.perf_counter()
+    cli_prepare_data.cli_main(["--data", str(root), "--out", str(tsv), "--extension", "wav"])
+    teacher = pt.hubert_base(device="cpu", generator=torch.Generator().manual_seed(0))
+    teacher_ckpt = PIPE_DIR / "hubert_base_teacher.pth"
+    save_checkpoint(teacher_ckpt, teacher.config, teacher.state_dict())
+    spec_t = teacher.spec
+    del teacher
+    L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
+    common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
+              "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
+              "--num_workers", "4", "--device", "cuda"]
+    valid_batches = n_valid // FINAL_B
+    stages, total = [], dict.fromkeys(WRAPPERS, 0)
+
+    def stage(label, module, argv, *, student_spec=None, steps=0, valid_passes=0, code=0):
+        reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            module.cli_main(argv)
+            got = 0
+        except SystemExit as exit_:
+            got = exit_.code
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = launch_counts()
+        check(got == code, f"pipeline {label}: exit {got}, expected {code}")
+        row = {"stage": label, "exit": got, "seconds": seconds, "launches": counts}
+        if student_spec is not None:
+            per_step = add_counts((1, model_launches(spec_t, L, False)),
+                                  (1, model_launches(student_spec, L, True)))
+            per_valid = add_counts((1, model_launches(spec_t, L, False)),
+                                   (1, model_launches(student_spec, L, False)))
+            want = add_counts((steps, per_step), (valid_passes * valid_batches, per_valid))
+            check(counts == want, f"pipeline {label}: launches {counts}, expected {want}")
+            row.update(steps=steps, validation_batches=valid_passes * valid_batches,
+                       launches_per_step=per_step, launches_per_validation_batch=per_valid)
+        for k in total:
+            total[k] += counts[k]
+        stages.append(row)
+        emit({"phase": "pipeline_stage", **row})
+        torch.cuda.empty_cache()
+        return row
+
+    exp1, exp1b = PIPE_DIR / "stage1", PIPE_DIR / "stage1_deadline"
+    stage("distill", cli_distill, common + ["--student_ckpt", str(teacher_ckpt),
+                                            "--exp_dir", str(exp1), "--max_updates", "3"],
+          student_spec=spec_t, steps=3, valid_passes=1)
+    distilled = exp1 / "ckpts" / "distilled.pth"
+    check(distilled.exists(), "stage 1 wrote no distilled.pth")
+    argv1b = common + ["--student_ckpt", str(teacher_ckpt), "--exp_dir", str(exp1b),
+                       "--max_updates", "3"]
+    os.environ["DPHUBERT_DEADLINE_TS"] = "1"  # 1970: always past
+    try:
+        stage("distill, deadline", cli_distill, argv1b, student_spec=spec_t, steps=1, code=76)
+    finally:
+        del os.environ["DPHUBERT_DEADLINE_TS"]
+    last = exp1b / "ckpts" / "last.pt"
+    check(last.exists() and not (exp1b / "ckpts" / "distilled.pth").exists(),
+          "the deadline stop must checkpoint and export nothing")
+    stage("distill, resumed", cli_distill, argv1b + ["--resume_checkpoint", str(last)],
+          student_spec=spec_t, steps=2, valid_passes=1)
+    check((exp1b / "ckpts" / "distilled.pth").exists(), "the resumed stage 1 exported nothing")
+
+    stage("prune", cli_prune, ["--distilled_ckpt", str(distilled),
+                               "--original_ckpt", str(teacher_ckpt)])
+    pruned = exp1 / "ckpts" / "pruned_hubert_base.pth"
+    pruned_cfg = load_checkpoint(pruned)["config"]
+    exp2 = PIPE_DIR / "stage2"
+    stage("final_distill", cli_final_distill,
+          common + ["--student_ckpt", str(pruned), "--exp_dir", str(exp2), "--max_updates", "2"],
+          student_spec=pt.spec_from_config(**pruned_cfg), steps=2, valid_passes=1)
+
+    r2_cfg = r2_all_attention_config()
+    r2 = pt.wav2vec2_model(device="cpu", generator=torch.Generator().manual_seed(7), **r2_cfg)
+    r2_ckpt = PIPE_DIR / "r2_all_attention.pth"
+    save_checkpoint(r2_ckpt, r2_cfg, r2.state_dict())
+    del r2
+    r2_spec = pt.spec_from_config(**r2_cfg)
+    r2_row = stage("final_distill, r2 heads", cli_final_distill,
+                   common + ["--student_ckpt", str(r2_ckpt), "--exp_dir", str(PIPE_DIR / "stage2_r2"),
+                             "--max_updates", "3"],
+                   student_spec=r2_spec, steps=3, valid_passes=1)
+    check(r2_row["launches_per_step"]["flash_attention_fwd"] == 2
+          and r2_row["launches_per_step"]["flash_attention_bwd_dq"] == 2
+          and r2_row["launches_per_step"]["flash_attention_bwd_dkv"] == 2,
+          f"r2 final distill: flash launches per step {r2_row['launches_per_step']}")
+
+    stage("save_final_ckpt", cli_save_final_ckpt,
+          ["--config_path", str(pruned),
+           "--ckpt_after_final_distill", str(exp2 / "ckpts" / "distilled.pth")])
+    final = exp2 / "ckpts" / "pruned_hubert_base.pth"
+    stage("load_dpmodel", cli_load_dpmodel, [str(final), "--device", "cuda"])
+
+    # the final checkpoint served: bf16 through the Predictor on clips of the
+    # corpus and two short ones; fp32 card against the CPU per layer
+    reset_launch_counts()
+    model = load_model(final, device="cuda")
+    clips = [load_audio(p)[0][0] for p in sorted((root / "dev-clean/3/4").glob("*.wav"))]
+    clips += [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (32000, 56000)]
+    feats = Predictor(model, dtype=torch.bfloat16).extract(clips)
+    for c, f in zip(clips, feats):
+        n = int(output_lengths(model.spec, torch.tensor([len(c)]))[0])
+        check(f.shape == (n, 768) and np.isfinite(f).all(), f"served features {f.shape}")
+    err = per_layer_card_vs_cpu(model, copy.deepcopy(model).to("cpu"), clips[-2:])
+    counts = launch_counts()
+    for k in total:
+        total[k] += counts[k]
+    served = {"stage": "serve final checkpoint", "clips": len(clips),
+              "fp32_card_vs_cpu_max_abs": err, "launches": counts}
+    emit({"phase": "pipeline_stage", **served})
+    stages.append(served)
+    del model
+    row = {"phase": "pipeline", "seconds": time.perf_counter() - t0,
+           "pruned_config": {k: pruned_cfg[k] for k in ("encoder_num_heads",
+                                                          "encoder_ff_interm_features",
+                                                          "encoder_use_attention")},
+           "launches": total}
+    emit(row)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
     return row
 
 
@@ -697,11 +1080,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    t_start = time.perf_counter()
 
     smi = phase_card()
     base = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
     kernels = phase_kernels(base.spec)
     train_kernels = phase_train_kernels(base.spec)
+    flash_kernels = phase_flash_kernels()
 
     # path 1: HuBERT Base served in bf16 and fp32
     reset_launch_counts()
@@ -709,36 +1094,52 @@ def main() -> int:
     path_launches = {"serve": launch_counts()}
     del base
 
-    cfg = json.loads((REPO / "docs" / "pruned_config_r2.json").read_text())
+    cfg = json.loads(R2_CONFIG.read_text())
     reset_launch_counts()
     student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1), **cfg)
     phase_slice("pruned_config_r2", student)
     emit({"phase": "pruned_student_launches", **launch_counts()})
     del student
 
-    # path 2: the distill step (phase_train resets the counts before its steps)
+    # path 2: the stage-1 distill step (timed_steps resets the counts before
+    # its steps and reads them after)
     phase_train_check()
-    train = phase_train()
-    path_launches["train"] = train["launches"]
+    path_launches["train"] = phase_train()["launches"]
+
+    # path 3: the final-distill step of a student on the flash route, then
+    # the whole recipe through the CLIs (each stage resets and reads)
+    phase_final_distill_check()
+    final_step = phase_final_distill_step()
+    path_launches["final_distill"] = final_step["launches"]
+    path_launches["pipeline"] = phase_pipeline()["launches"]
 
     rows = {
         "packed_attention_fwd": train_kernels[("packed_attention_fwd", "train", torch.bfloat16)],
-        "flash_attention_fwd": kernels[("flash_attention_fwd", torch.bfloat16)],
+        "flash_attention_fwd": flash_kernels[("flash_attention_fwd", "final_distill", torch.bfloat16)],
         "packed_attention_bwd_dq": train_kernels[("packed_attention_bwd_dq", "train", torch.bfloat16)],
         "packed_attention_bwd_dkv": train_kernels[("packed_attention_bwd_dkv", "train", torch.bfloat16)],
+        "flash_attention_bwd_dq": flash_kernels[("flash_attention_bwd_dq", "final_distill", torch.bfloat16)],
+        "flash_attention_bwd_dkv": flash_kernels[("flash_attention_bwd_dkv", "final_distill", torch.bfloat16)],
     }
+    serve_flash = kernels[("flash_attention_fwd", torch.bfloat16)]
     line = []
     for name, r in rows.items():
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
         check(sum(by_path.values()) > 0, f"{name} was not launched on any path")
         source, replaces = KERNELS[name]
-        line.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "dtype": r["dtype"], "shape": r["shape_BLHD"],
-        })
+            "library_ms": r["library_ms"], "dtype": r["dtype"],
+            "shape": r.get("shape_BLHD") or r["shape_BHLD"],
+        }
+        if name == "flash_attention_fwd":  # its serving row, without dropout
+            entry["serve"] = {k: serve_flash[k] for k in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "max_abs_err", "shape_BLHD")}
+        line.append(entry)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

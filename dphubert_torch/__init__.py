@@ -2,11 +2,13 @@
 
 It serves compressed HuBERT / wav2vec 2.0 checkpoints (load a portable
 ``{"config", "state_dict"}`` checkpoint, call ``extract_features`` or the
-bucketing :class:`~dphubert_torch.serve.Predictor`) and trains the stage-1
-distill step (:mod:`dphubert_torch.train`: ``init_train_state``,
-``make_train_step``, ``make_eval_step``).  Attention runs in hand-written
-CUDA kernels (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``) built
-with ``nvcc`` at first use.  Everything runs on the card unless the caller
+bucketing :class:`~dphubert_torch.serve.Predictor`) and runs the
+four-stage recipe on one card: the data pipeline (:mod:`dphubert_torch.data`),
+the distill step and its trainer (:mod:`dphubert_torch.train`:
+``make_train_step``, ``train``), prune surgery (:mod:`dphubert_torch.prune`)
+and the stage CLIs (:mod:`dphubert_torch.cli`).  Attention runs in
+hand-written CUDA kernels (``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu``) built with ``nvcc`` at first use.  Everything runs on the card unless the caller
 passes ``device="cpu"``, where each kernel's plain PyTorch version runs
 instead.
 """

@@ -1,18 +1,23 @@
-// Attention backward for Hopper (sm_90a) on the packed (B, L, H*D) layout:
-// the gradients of out = dropout(softmax(scale * q k^T + key mask)) v.
+// Attention backward for Hopper (sm_90a): the gradients of
+// out = dropout(softmax(scale * q k^T + key mask)) v.
 //
-// Replaces two Pallas kernels of the TPU package's packed family:
-//   * ops/packed_attention.py::_heads_loop_bwd_dq (pallas_call at :322), entry
-//     point packed_attention_bwd_dq;
-//   * ops/packed_attention.py::_heads_loop_bwd_dkv (pallas_call at :339),
-//     entry point packed_attention_bwd_dkv;
-// and fuses di = rowsum(out * dout) per head, which _packed_bwd computed
-// outside the kernels (:302-309), into the dq kernel's prologue: dq writes
-// di as (B, H, L) fp32 and dkv, launched after it on the same stream, reads
-// it.  Both kernels regenerate the dropout mask from the hash in
-// attention_common.cuh and read the row statistics m and l that
-// attention_fwd.cu's packed_attention_fwd stored, so neither p nor the mask
-// is ever in memory.
+// Replaces four Pallas kernels of the TPU package, two per layout:
+//   * ops/packed_attention.py::_heads_loop_bwd_dq (pallas_call at :322) and
+//     _heads_loop_bwd_dkv (:339), the packed (B, L, H*D) layout, entry points
+//     packed_attention_bwd_dq and packed_attention_bwd_dkv;
+//   * ops/flash_attention.py::_bwd_dq_kernel (pallas_call at :444) and
+//     _bwd_dkv_kernel (:402), the (B, H, L, D) layout, entry points
+//     flash_attention_bwd_dq and flash_attention_bwd_dkv.
+// The two families compute the same function (_flash_bwd_rule :382-469 and
+// _packed_bwd differ only in layout and tiling), so, as in attention_fwd.cu,
+// one templated body per kernel serves both layouts through (batch, row,
+// head) strides.  di = rowsum(out * dout) per head, which both TPU rules
+// computed outside the kernels (flash_attention.py:390, packed :302-309), is
+// fused into the dq kernel's prologue: dq writes di as (B, H, L) fp32 and
+// dkv, launched after it on the same stream, reads it.  Both kernels
+// regenerate the dropout mask from the hash in attention_common.cuh at
+// absolute (b, h, row, col) and read the row statistics m and l that
+// attention_fwd.cu stored, so neither p nor the mask is ever in memory.
 //
 // Semantics (as the Pallas kernels, in fp32 whatever the input type):
 //   p  = exp(s - m) / l, the undropped softmax, s masked as in the forward;
@@ -429,8 +434,8 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* out,
                   const void* dout, const void* m, const void* l, void* di,
                   void* dq, void* dk, void* dv, const void* lengths,
                   const void* seed, unsigned threshold, float inv_keep, int B,
-                  int L, int H, int D, long long in_batch, long long in_row,
-                  long long g_batch, long long g_row, float scale) {
+                  int L, int H, Strides in, Strides os, Strides gs,
+                  float scale) {
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.out = out; a.dout = dout;
   a.m = static_cast<const float*>(m);
@@ -439,13 +444,22 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* out,
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.lengths = static_cast<const int*>(lengths);
   a.B = B; a.H = H; a.L = L;
-  a.in = Strides{in_batch, in_row, D};
-  a.os = Strides{(long long)L * H * D, (long long)H * D, D};
-  a.gs = Strides{g_batch, g_row, D};
+  a.in = in;
+  a.os = os;
+  a.gs = gs;
   a.scale = scale;
   a.drop = Dropout{static_cast<const int*>(seed), threshold,
                    seed != nullptr ? inv_keep : 1.f};
   return a;
+}
+
+// Strides of a contiguous (B, L, H*D) tensor and of a contiguous
+// (B, H, L, D) one, as (batch, row, head).
+Strides packed_rows(int L, int H, int D) {
+  return Strides{(long long)L * H * D, (long long)H * D, D};
+}
+Strides head_rows(int L, int H, int D) {
+  return Strides{(long long)H * L * D, (long long)D, (long long)L * D};
 }
 
 }  // namespace
@@ -468,7 +482,9 @@ int packed_attention_bwd_dq(const void* q, const void* k, const void* v,
                             int dtype, void* stream) {
   const BwdArgs a = make_args(q, k, v, out, dout, m, l, di, dq, nullptr,
                               nullptr, lengths, seed, threshold, inv_keep, B,
-                              L, H, D, in_batch, in_row, g_batch, g_row, scale);
+                              L, H, Strides{in_batch, in_row, D},
+                              packed_rows(L, H, D), Strides{g_batch, g_row, D},
+                              scale);
   return dispatch<true>(dtype, D, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -485,8 +501,46 @@ int packed_attention_bwd_dkv(const void* q, const void* k, const void* v,
                              void* stream) {
   const BwdArgs a = make_args(q, k, v, nullptr, dout, m, l,
                               const_cast<void*>(di), nullptr, dk, dv, lengths,
-                              seed, threshold, inv_keep, B, L, H, D, in_batch,
-                              in_row, g_batch, g_row, scale);
+                              seed, threshold, inv_keep, B, L, H,
+                              Strides{in_batch, in_row, D}, packed_rows(L, H, D),
+                              Strides{g_batch, g_row, D}, scale);
+  return dispatch<false>(dtype, D, a, static_cast<cudaStream_t>(stream));
+}
+
+// The (B, H, L, D) layout of flash_attention_fwd.  q, k, v: views with
+// element strides (batch, head, row) and unit stride along D.  out, dout,
+// and the gradients dq, dk, dv: contiguous (B, H, L, D).  m, l, di: (B, H, L)
+// fp32 as for the packed entry points; lengths, seed, threshold, inv_keep
+// and dtype as for packed_attention_fwd.
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* out, const void* dout, const void* m,
+                           const void* l, void* di, void* dq,
+                           const void* lengths, const void* seed,
+                           unsigned threshold, float inv_keep, int B, int H,
+                           int L, int D, long long stride_batch,
+                           long long stride_head, long long stride_row,
+                           float scale, int dtype, void* stream) {
+  const BwdArgs a = make_args(q, k, v, out, dout, m, l, di, dq, nullptr,
+                              nullptr, lengths, seed, threshold, inv_keep, B,
+                              L, H, Strides{stride_batch, stride_row, stride_head},
+                              head_rows(L, H, D), head_rows(L, H, D), scale);
+  return dispatch<true>(dtype, D, a, static_cast<cudaStream_t>(stream));
+}
+
+// As flash_attention_bwd_dq, reading the di it wrote.
+int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* m, const void* l,
+                            const void* di, void* dk, void* dv,
+                            const void* lengths, const void* seed,
+                            unsigned threshold, float inv_keep, int B, int H,
+                            int L, int D, long long stride_batch,
+                            long long stride_head, long long stride_row,
+                            float scale, int dtype, void* stream) {
+  const BwdArgs a = make_args(q, k, v, nullptr, dout, m, l,
+                              const_cast<void*>(di), nullptr, dk, dv, lengths,
+                              seed, threshold, inv_keep, B, L, H,
+                              Strides{stride_batch, stride_row, stride_head},
+                              head_rows(L, H, D), head_rows(L, H, D), scale);
   return dispatch<false>(dtype, D, a, static_cast<cudaStream_t>(stream));
 }
 

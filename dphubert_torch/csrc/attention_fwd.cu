@@ -8,8 +8,8 @@
 //     the backward kernels of attention_bwd.cu when the caller asks;
 //   * ops/flash_attention.py::_fwd_kernel (launched by _fwd), the
 //     (B, H, L, D) layout that also stores the softmax statistics m and l,
-//     entry point flash_attention_fwd (no dropout: its backward is not
-//     ported, so the flash route serves only).
+//     entry point flash_attention_fwd; with dropout for training, and m and
+//     l read by the flash backward kernels of attention_bwd.cu.
 // Both layouts differ only in strides, so one templated body serves both.
 //
 // Semantics (as the Pallas kernels):
@@ -19,7 +19,9 @@
 //   input type before the PV product, as flash_attention.py's _fwd_kernel
 //   does; with dropout, p is zeroed where the hash drops it (l keeps the
 //   undropped sum) and the output is scaled by 1/(1 - rate), as
-//   packed_attention.py:101-107; out = acc / l with 1/l taken as 1 when
+//   packed_attention.py:101-107 and flash_attention.py:127-146; the mask's
+//   coordinates are absolute (b, h, row, col), so the TPU kernels' tiling
+//   and padding change none of its bits; out = acc / l with 1/l taken as 1 when
 //   l == 0.  A row whose length is 0 sees every key masked and so averages v
 //   over all L rows, like the plain version.
 //
@@ -272,14 +274,17 @@ int packed_attention_fwd(const void* q, const void* k, const void* v,
 
 // q, k, v: (B, H, L, D) views with element strides (batch, head, row).
 // out: contiguous (B, H, L, D); m, l: contiguous (B, H, L) float32.
+// lengths, seed, threshold, inv_keep and dtype as for packed_attention_fwd.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, void* m, void* l, const void* lengths,
+                        const void* seed, unsigned threshold, float inv_keep,
                         int B, int H, int L, int D, long long stride_batch,
                         long long stride_head, long long stride_row,
                         float scale, int dtype, void* stream) {
   const Strides in{stride_batch, stride_row, stride_head};
   const Strides os{(long long)H * L * D, (long long)D, (long long)L * D};
-  const Dropout drop{nullptr, 0u, 1.f};
+  const Dropout drop{static_cast<const int*>(seed), threshold,
+                     seed != nullptr ? inv_keep : 1.f};
   return dispatch(dtype, D, q, k, v, out, static_cast<float*>(m),
                   static_cast<float*>(l), static_cast<const int*>(lengths), B,
                   H, L, in, os, scale, drop, static_cast<cudaStream_t>(stream));

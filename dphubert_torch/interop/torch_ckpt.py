@@ -105,21 +105,28 @@ def load_native(path) -> dict:
 # --- model-level helpers ----------------------------------------------------
 
 
-def load_model(path, device="cuda"):
-    """Checkpoint -> ``Wav2Vec2Model`` on ``device`` in eval mode, loaded
-    with ``strict=True`` (the ``wav2vec2_model(**ckpt["config"])`` +
-    ``load_state_dict`` one-liner).  Raises if CUDA is asked for and absent."""
+def model_from_checkpoint(ckpt: dict, device="cuda"):
+    """A loaded checkpoint dict (``load_checkpoint``) -> ``Wav2Vec2Model``
+    on ``device`` in eval mode, loaded with ``strict=True``; the model keeps
+    the checkpoint's config as it is.  Raises if CUDA is asked for and
+    absent."""
     from ..configs import spec_from_config
     from ..models.model import Wav2Vec2Model, resolve_device
 
     device = resolve_device(device)
-    ckpt = load_checkpoint(path)
     model = Wav2Vec2Model(spec_from_config(**ckpt["config"]), config_override=ckpt["config"])
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v, copy=True)) for k, v in ckpt["state_dict"].items()},
         strict=True,
     )
     return model.to(device).eval()
+
+
+def load_model(path, device="cuda"):
+    """Checkpoint -> ``Wav2Vec2Model`` on ``device`` in eval mode, loaded
+    with ``strict=True`` (the ``wav2vec2_model(**ckpt["config"])`` +
+    ``load_state_dict`` one-liner).  Raises if CUDA is asked for and absent."""
+    return model_from_checkpoint(load_checkpoint(path), device)
 
 
 def verify_strict(model, state_dict: Dict[str, object]) -> None:

@@ -38,7 +38,7 @@ from ..configs import (
     FeedForwardSpec,
     ModelSpec,
 )
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
 
 LN_EPS = 1e-5
@@ -342,27 +342,13 @@ class SelfAttention(nn.Module):
         w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
         b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
         qkv = F.linear(x, w.to(x.dtype), b.to(x.dtype))
-        if attention_route(L, H, D) == "packed":
-            seed = None
-            if rate > 0.0:  # one int32 on the device: the kernels read it there
-                seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
-                                     device=x.device).to(torch.int32)
-            out = packed_attention_qkv(qkv, lengths, num_heads=H, scale=scale,
-                                       dropout_rate=rate, seed=seed)
-        else:
-            if rate > 0.0 or (torch.is_grad_enabled() and qkv.requires_grad):
-                raise NotImplementedError(
-                    f"attention at L={L} with {H} heads x {D} takes the flash "
-                    "route, whose backward kernels and dropout are not ported "
-                    "yet (ROADMAP queue 2, item 2); it serves only"
-                )
-            q, k, v = qkv.split(H * D, dim=-1)
-
-            def heads(t):  # (B, L, H*D) view -> (B, H, L, D) view
-                return t.view(B, L, H, D).transpose(1, 2)
-
-            out, _, _ = flash_attention(heads(q), heads(k), heads(v), lengths, scale=scale)
-            out = out.transpose(1, 2).reshape(B, L, H * D)
+        seed = None
+        if rate > 0.0:  # one int32 on the device: the kernels read it there
+            seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
+                                 device=x.device).to(torch.int32)
+        attend = (packed_attention_qkv if attention_route(L, H, D) == "packed"
+                  else flash_attention_qkv)
+        out = attend(qkv, lengths, num_heads=H, scale=scale, dropout_rate=rate, seed=seed)
         head_gate = _gate(gates, "heads")
         if head_gate is not None:
             out = (out.view(B, L, H, D) * head_gate.to(out.dtype)[:, None]).view(B, L, H * D)

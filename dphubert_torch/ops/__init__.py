@@ -1,7 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
 from .attention_common import dropout_keep_mask, dropout_threshold
-from .flash_attention import flash_attention, flash_attention_reference
+from .flash_attention import (
+    FlashAttentionFn,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_qkv,
+    flash_attention_reference,
+)
 from .packed_attention import (
     PackedAttentionFn,
     packed_attention,
@@ -14,10 +22,15 @@ from .packed_attention import (
 )
 
 __all__ = [
+    "FlashAttentionFn",
     "PackedAttentionFn",
     "dropout_keep_mask",
     "dropout_threshold",
     "flash_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_reference",
+    "flash_attention_qkv",
     "flash_attention_reference",
     "packed_attention",
     "packed_attention_bwd_dkv",

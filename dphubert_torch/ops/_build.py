@@ -95,3 +95,12 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def bind(lib: str, name: str, argtypes):
+    """``name`` of the library built from ``csrc/<lib>.cu``, with its
+    ``argtypes`` set and a cudaError_t (int) result."""
+    fn = getattr(load_library(lib), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

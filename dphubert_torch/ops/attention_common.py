@@ -1,6 +1,7 @@
 """What the attention kernels and their plain versions share: the mask
-constant, the dropout hash's plain version and threshold, and the checks a
-wrapper makes before it hands pointers to a kernel."""
+constant, the dropout hash's plain version and threshold, the plain softmax
+and backward on the (B, H, L, D) layout, and the checks a wrapper makes
+before it hands pointers to a kernel."""
 
 from __future__ import annotations
 
@@ -76,6 +77,69 @@ def dropout_keep_mask(
     return x <= dropout_threshold(keep)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for fp32 and bf16 inputs (the kernels' accumulation type);
+    float64 stays float64 so gradcheck can run the plain versions."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def keep_mask(seed: torch.Tensor, dropout_rate: float, B: int, H: int, L: int, device):
+    """The (B, H, L, L) keep mask of every (batch, head, row, column) for
+    the one-element int32 ``seed``."""
+    b = torch.arange(B, device=device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device).view(1, H, 1, 1)
+    return dropout_keep_mask((L, L), 1.0 - dropout_rate, int(seed.reshape(-1)[0]), b, h,
+                             device=device)
+
+
+def softmax_parts(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tensor],
+                  scale: float):
+    """Scores of (B, H, L, D) q and k in ``acc_dtype``, key columns at or
+    past ``lengths[b]`` masked with NEG_INF as the kernels mask them: the
+    unnormalised p = exp(s - m), the (B, H, L, 1) row max m, sum l and
+    1/l (taken as 1 where l is 0)."""
+    acc = acc_dtype(q.dtype)
+    L = q.shape[2]
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if lengths is not None:
+        valid = torch.arange(L, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
+    return p, m, l, l_inv
+
+
+def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate: float,
+                        seed: Optional[torch.Tensor]):
+    """(dq, dk, dv) of (B, H, L, D) tensors in ``acc_dtype``, by the formulas
+    of the TPU backward kernels (flash ``_bwd_dq_kernel`` /
+    ``_bwd_dkv_kernel``, packed ``_heads_loop_bwd_dq`` / ``_dkv``): p
+    recomputed and normalised; dp = dout v^T, dropped and scaled; di =
+    rowsum(out * dout); ds = p (dp - di) scale; dq = ds k, dk = ds^T q,
+    dv = p~^T dout with p~ the dropped, scaled p."""
+    acc = acc_dtype(q.dtype)
+    p, _, _, l_inv = softmax_parts(q, k, lengths, scale)
+    p = p * l_inv
+    do = dout.to(acc)
+    dp = torch.matmul(do, v.to(acc).transpose(-1, -2))
+    if dropout_rate > 0.0:
+        B, H, L, _ = q.shape
+        keep = keep_mask(seed, dropout_rate, B, H, L, q.device)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        p_used = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+    else:
+        p_used = p
+    di = (out.to(acc) * do).sum(dim=-1, keepdim=True)
+    ds = p * (dp - di) * scale
+    dq = torch.matmul(ds, k.to(acc))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc))
+    dv = torch.matmul(p_used.transpose(-1, -2), do)
+    return dq, dk, dv
+
+
 def check_kernel_inputs(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths: Optional[torch.Tensor], head_dim: int,
@@ -134,7 +198,24 @@ def forward_only(name: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would need a gradient through a forward-only call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} is forward-only; the differentiable packed attention is "
-            "PackedAttentionFn (ops/packed_attention.py), and the flash "
-            "backward kernels are not ported yet (ROADMAP queue 2, item 2)"
+            f"{name} is forward-only; the differentiable forms are "
+            "PackedAttentionFn (ops/packed_attention.py) and FlashAttentionFn "
+            "(ops/flash_attention.py)"
         )
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's card, as the C interface takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_rows(name: str, t: torch.Tensor, like: torch.Tensor, shape, dtype) -> None:
+    """Raise unless t is a contiguous ``dtype`` tensor of ``shape`` on
+    like's device."""
+    if t.device != like.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name} must be {dtype} of shape {tuple(shape)} on {like.device}, "
+            f"got {t.dtype}/{tuple(t.shape)}/{t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -36,16 +36,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import load_library
+from ._build import bind
 from .attention_common import (
     DTYPE_CODES,
-    NEG_INF,
     _ceil_to,
+    acc_dtype,
+    attention_bwd_plain,
     check_kernel_inputs,
+    check_rows,
     check_seed,
     dropout_args,
-    dropout_keep_mask,
     forward_only,
+    keep_mask,
+    softmax_parts,
+    stream,
 )
 
 LANES = 128
@@ -79,38 +83,16 @@ def packed_num_groups(L: int, num_heads: int, head_dim: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    """fp32 for fp32 and bf16 inputs (the kernels' accumulation type);
-    float64 stays float64 so gradcheck can run the plain versions."""
-    return torch.promote_types(dtype, torch.float32)
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, H, L, D) view."""
+    B, L, HD = x.shape
+    return x.reshape(B, L, num_heads, HD // num_heads).transpose(1, 2)
 
 
-def _keep_mask(seed: torch.Tensor, dropout_rate: float, B: int, H: int, L: int, device):
-    b = torch.arange(B, device=device).view(B, 1, 1, 1)
-    h = torch.arange(H, device=device).view(1, H, 1, 1)
-    return dropout_keep_mask((L, L), 1.0 - dropout_rate, int(seed.reshape(-1)[0]), b, h,
-                             device=device)
-
-
-def _softmax_parts(q, k, lengths, num_heads, scale):
-    """(B, H, L, L) normalised p and the (B, H, L, 1) row sums' inverse,
-    from scores masked as the kernels mask them."""
-    B, L, HD = q.shape
-    D = HD // num_heads
-    acc = _acc_dtype(q.dtype)
-
-    def heads(x):  # (B, L, H*D) -> (B, H, L, D)
-        return x.reshape(B, L, num_heads, D).transpose(1, 2).to(acc)
-
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
-    if lengths is not None:
-        valid = torch.arange(L, device=q.device)[None, :] < lengths.to(q.device)[:, None]
-        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
-    return p, l_inv, heads
+def _packed(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, L, D) -> (B, L, H*D) in ``dtype``."""
+    B, H, L, D = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * D).to(dtype)
 
 
 def packed_attention_reference(
@@ -131,12 +113,12 @@ def packed_attention_reference(
     D = HD // num_heads
     if scale is None:
         scale = D ** -0.5
-    p, l_inv, heads = _softmax_parts(q, k, lengths, num_heads, scale)
+    p, _, _, l_inv = softmax_parts(_heads(q, num_heads), _heads(k, num_heads), lengths, scale)
     if dropout_rate > 0.0:
-        p = torch.where(_keep_mask(seed, dropout_rate, B, num_heads, L, q.device), p, 0.0)
+        p = torch.where(keep_mask(seed, dropout_rate, B, num_heads, L, q.device), p, 0.0)
         l_inv = l_inv / (1.0 - dropout_rate)
-    out = torch.matmul((p * l_inv).to(v.dtype).to(p.dtype), heads(v))
-    return out.transpose(1, 2).reshape(B, L, HD).to(q.dtype)
+    out = torch.matmul((p * l_inv).to(v.dtype).to(p.dtype), _heads(v, num_heads).to(p.dtype))
+    return _packed(out, q.dtype)
 
 
 def packed_attention_bwd_reference(
@@ -150,44 +132,17 @@ def packed_attention_bwd_reference(
     (float64 for float64 inputs): p recomputed; dp = dout v^T, dropped and
     scaled; di = rowsum(out * dout); ds = p (dp - di) scale; dq = ds k,
     dk = ds^T q, dv = p~^T dout with p~ the dropped, scaled p."""
-    B, L, HD = q.shape
-    D = HD // num_heads
+    D = q.shape[-1] // num_heads
     if scale is None:
         scale = D ** -0.5
-    p, l_inv, heads = _softmax_parts(q, k, lengths, num_heads, scale)
-    p = p * l_inv
-    do = heads(dout)
-    dp = torch.matmul(do, heads(v).transpose(-1, -2))
-    if dropout_rate > 0.0:
-        keep = _keep_mask(seed, dropout_rate, B, num_heads, L, q.device)
-        inv_keep = 1.0 / (1.0 - dropout_rate)
-        p_used = torch.where(keep, p * inv_keep, 0.0)
-        dp = torch.where(keep, dp * inv_keep, 0.0)
-    else:
-        p_used = p
-    di = (heads(out) * do).sum(dim=-1, keepdim=True)
-    ds = p * (dp - di) * scale
-    dq = torch.matmul(ds, heads(k))
-    dk = torch.matmul(ds.transpose(-1, -2), heads(q))
-    dv = torch.matmul(p_used.transpose(-1, -2), do)
-
-    def packed(x):  # (B, H, L, D) -> (B, L, H*D)
-        return x.transpose(1, 2).reshape(B, L, HD).to(q.dtype)
-
-    return packed(dq), packed(dk), packed(dv)
+    grads = attention_bwd_plain(*(_heads(t, num_heads) for t in (q, k, v, out, dout)),
+                                lengths, scale, dropout_rate, seed)
+    return tuple(_packed(g, q.dtype) for g in grads)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def _bind(name: str, argtypes):
-    lib = "attention_fwd" if name == "packed_attention_fwd" else "attention_bwd"
-    fn = getattr(load_library(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
 
 
 _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
@@ -196,7 +151,7 @@ _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
-    return _bind("packed_attention_fwd", [
+    return bind("attention_fwd", "packed_attention_fwd", [
         _P, _P, _P, _P, _P, _P, _P, _P, _U, _F, _I, _I, _I, _I, _LL, _LL, _F,
         _I, _P,
     ])
@@ -204,7 +159,7 @@ def _fwd_kernel():
 
 @functools.lru_cache(maxsize=None)
 def _dq_kernel():
-    return _bind("packed_attention_bwd_dq", [
+    return bind("attention_bwd", "packed_attention_bwd_dq", [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F, _I, _I, _I, _I,
         _LL, _LL, _LL, _LL, _F, _I, _P,
     ])
@@ -212,7 +167,7 @@ def _dq_kernel():
 
 @functools.lru_cache(maxsize=None)
 def _dkv_kernel():
-    return _bind("packed_attention_bwd_dkv", [
+    return bind("attention_bwd", "packed_attention_bwd_dkv", [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F, _I, _I, _I, _I,
         _LL, _LL, _LL, _LL, _F, _I, _P,
     ])
@@ -223,20 +178,6 @@ def _head_dim(q: torch.Tensor, num_heads: int) -> int:
     if HD % num_heads:
         raise ValueError(f"width {HD} is not num_heads={num_heads} x head_dim")
     return HD // num_heads
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_rows(name: str, t: torch.Tensor, like: torch.Tensor, shape, dtype) -> None:
-    if t.device != like.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name} must be {dtype} of shape {tuple(shape)} on {like.device}, "
-            f"got {t.dtype}/{tuple(t.shape)}/{t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_grad_views(views, q: torch.Tensor) -> None:
@@ -263,7 +204,7 @@ def _launch_fwd(q, k, v, lengths, seed, num_heads, scale, dropout_rate, stats):
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         None if lengths is None else lengths.data_ptr(), seed_ptr, threshold,
         inv_keep, B, L, num_heads, D, q.stride(0), q.stride(1), float(scale),
-        DTYPE_CODES[q.dtype], _stream(q),
+        DTYPE_CODES[q.dtype], stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"packed_attention_fwd launch failed: cudaError {rc}")
@@ -316,7 +257,7 @@ def packed_attention_bwd_dq(
     B, L, HD = q.shape
     D = _head_dim(q, num_heads)
     if q.device.type == "cpu":
-        acc = _acc_dtype(q.dtype)
+        acc = acc_dtype(q.dtype)
         got, _, _ = packed_attention_bwd_reference(
             q, k, v, out, dout, lengths, num_heads=num_heads, scale=scale,
             dropout_rate=dropout_rate, seed=seed,
@@ -329,9 +270,9 @@ def packed_attention_bwd_dq(
     check_kernel_inputs(q, k, v, lengths, D)
     check_seed(seed, dropout_rate, q.device)
     for name, t in (("out", out), ("dout", dout)):
-        _check_rows(name, t, q, (B, L, HD), q.dtype)
+        check_rows(name, t, q, (B, L, HD), q.dtype)
     for name, t in (("m", m), ("l", l)):
-        _check_rows(name, t, q, (B, num_heads, L), torch.float32)
+        check_rows(name, t, q, (B, num_heads, L), torch.float32)
     if dq is None:
         dq = torch.empty((B, L, HD), dtype=q.dtype, device=q.device)
     _check_grad_views([dq], q)
@@ -342,7 +283,7 @@ def packed_attention_bwd_dq(
         m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(),
         None if lengths is None else lengths.data_ptr(), seed_ptr, threshold,
         inv_keep, B, L, num_heads, D, q.stride(0), q.stride(1), dq.stride(0),
-        dq.stride(1), float(scale), DTYPE_CODES[q.dtype], _stream(q),
+        dq.stride(1), float(scale), DTYPE_CODES[q.dtype], stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"packed_attention_bwd_dq launch failed: cudaError {rc}")
@@ -377,9 +318,9 @@ def packed_attention_bwd_dkv(
         return gk, gv
     check_kernel_inputs(q, k, v, lengths, D)
     check_seed(seed, dropout_rate, q.device)
-    _check_rows("dout", dout, q, (B, L, HD), q.dtype)
+    check_rows("dout", dout, q, (B, L, HD), q.dtype)
     for name, t in (("m", m), ("l", l), ("di", di)):
-        _check_rows(name, t, q, (B, num_heads, L), torch.float32)
+        check_rows(name, t, q, (B, num_heads, L), torch.float32)
     if dk is None:
         dk = torch.empty((B, L, HD), dtype=q.dtype, device=q.device)
     if dv is None:
@@ -391,7 +332,7 @@ def packed_attention_bwd_dkv(
         l.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if lengths is None else lengths.data_ptr(), seed_ptr, threshold,
         inv_keep, B, L, num_heads, D, q.stride(0), q.stride(1), dk.stride(0),
-        dk.stride(1), float(scale), DTYPE_CODES[q.dtype], _stream(q),
+        dk.stride(1), float(scale), DTYPE_CODES[q.dtype], stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"packed_attention_bwd_dkv launch failed: cudaError {rc}")

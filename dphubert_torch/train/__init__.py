@@ -1,6 +1,8 @@
-"""The distill step of the port: HardConcrete-gated student, per-layer
-distill loss, Lagrangian sparsity term and three-group AdamW."""
+"""Training on the port: the distill step (HardConcrete-gated student,
+per-layer distill loss, Lagrangian sparsity term, three-group AdamW), the
+trainer loop and its checkpoint."""
 
+from .checkpointing import load_train_state, save_train_state
 from .distill_module import (
     DistillConfig,
     TrainState,
@@ -19,15 +21,21 @@ from .projections import (
     projections_to_state_dict,
 )
 from .schedules import linear_decay_factor, tri_stage_factor
+from .trainer import MetricLogger, export_student_checkpoint, train
 
 __all__ = [
     "DistillConfig",
     "DistillOptimizer",
+    "MetricLogger",
     "TrainState",
+    "export_student_checkpoint",
     "init_train_state",
+    "load_train_state",
     "make_train_step",
     "make_eval_step",
     "make_grad_fn",
+    "save_train_state",
+    "train",
     "cosine_similarity",
     "distill_loss_unstacked",
     "linear_decay_factor",

@@ -42,10 +42,12 @@ def init_projections(
     student_dim: int,
     teacher_dim: int,
     generator: Optional[torch.Generator] = None,
-    device="cpu",
+    *,
+    device,
 ) -> dict:
-    """Projection parameters; predlayer draws U(-1/sqrt(in), 1/sqrt(in))
-    from ``generator`` (a CPU generator), layer2layer is the identity."""
+    """Projection parameters on ``device``; predlayer draws
+    U(-1/sqrt(in), 1/sqrt(in)) from ``generator`` (a CPU generator),
+    layer2layer is the identity."""
     if mode == "layer2layer":
         gp = {}
         for gi in range(len(groups)):
@@ -91,10 +93,10 @@ def projections_to_state_dict(
 
 
 def projections_from_state_dict(
-    sd: Dict[str, np.ndarray], mode: str, groups: Sequence[Sequence[int]], device="cpu",
+    sd: Dict[str, np.ndarray], mode: str, groups: Sequence[Sequence[int]], *, device,
 ) -> dict:
     """Inverse of :func:`projections_to_state_dict` (slot 0 of each group
-    carries the shared weights)."""
+    carries the shared weights), on ``device``."""
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(device)
 

@@ -1,0 +1,303 @@
+"""Training loop on one card: epochs, the feed, logging, checkpoint/resume,
+validation and the stage export (the TPU package's ``train/trainer.py``).
+
+``train`` runs stage 1 (``cfg.use_reg``: gates and the Lagrangian) or the
+final distill (``use_reg=False``, projections warm-started from stage 1) to
+``cfg.max_updates`` optimizer updates:
+
+* the loader's batches go to the card one step ahead, from pinned host
+  memory with a non-blocking copy, so the copy of batch N+1 overlaps step N;
+* a checkpoint (``train/checkpointing.py``) is written every
+  ``ckpt_interval`` micro-steps, at the end, and when the run stops early;
+  ``resume`` continues from one at the exact batch, gate draw and dropout
+  mask;
+* validation runs at each epoch end, every ``val_interval`` micro-steps,
+  and once on the final state of a completed run;
+* a SIGTERM, ``stop_at_step`` or the wall-clock deadline
+  ``DPHUBERT_DEADLINE_TS`` (unix seconds) checkpoints and stops; the reason
+  is returned through ``stop_info["why"]`` ("sigterm", "stop_at_step",
+  "deadline"), from which the CLIs choose their exit codes.
+
+Not ported yet (ROADMAP queue 1): the mesh and its tensor-parallel / FSDP
+layouts, ``steps_per_dispatch`` (a CUDA graph of K steps on the card), the
+RSS watchdog, orbax and the background saver.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import signal
+import time
+from typing import Optional
+
+import torch
+
+from ..interop.torch_ckpt import save_checkpoint
+from ..models.gates import compile_gates, has_gates
+from ..models.model import Wav2Vec2Model, resolve_device
+from ..params import flatten_params, unflatten_params
+from .checkpointing import load_train_state, save_train_state
+from .distill_module import (
+    DistillConfig,
+    TrainState,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from .projections import projections_from_state_dict, projections_to_state_dict
+
+SAMPLE_RATE = 16000
+
+
+class MetricLogger:
+    """stdout + JSONL metrics log (the reference logs via Lightning's
+    log_dict every ``log_interval`` steps, distill.py:49).  Metric values
+    are read from the card only on the steps that are logged."""
+
+    def __init__(self, exp_dir: pathlib.Path, interval: int = 50):
+        self.interval = interval
+        self.path = exp_dir / "metrics.jsonl"
+        self._f = open(self.path, "a")
+        self._t0 = time.time()
+        self._last_step = 0
+        self._last_time = self._t0
+        self._audio_acc = 0.0
+
+    def log(self, step: int, metrics: dict, audio_seconds: float = 0.0):
+        self._audio_acc += audio_seconds
+        if step % self.interval != 0:
+            return
+        now = time.time()
+        dt = now - self._last_time
+        row = {
+            "step": step,
+            "elapsed": round(now - self._t0, 1),
+            "steps_per_sec": round((step - self._last_step) / dt, 3) if dt > 0 else 0,
+            "audio_sec_per_sec": round(self._audio_acc / dt, 1) if dt > 0 else 0,
+            **{k: float(v) for k, v in metrics.items()},
+        }
+        self._last_step, self._last_time, self._audio_acc = step, now, 0.0
+        self._f.write(json.dumps(row) + "\n")
+        self._f.flush()
+        msg = " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items()
+        )
+        print(f"[train] {msg}", flush=True)
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def train(
+    *,
+    teacher: Wav2Vec2Model,
+    student: Wav2Vec2Model,
+    cfg: DistillConfig,
+    loader,
+    exp_dir,
+    valid_loader=None,
+    log_interval: int = 50,
+    ckpt_interval: int = 1000,
+    resume: Optional[str] = None,
+    seed: int = 2022,
+    proj_state_dict=None,
+    stop_at_step: Optional[int] = None,
+    val_interval: Optional[int] = None,
+    stop_info: Optional[dict] = None,
+    device="cuda",
+) -> TrainState:
+    """Train a copy of ``student`` against the frozen ``teacher`` (a module
+    on ``device``) to ``cfg.max_updates`` updates; returns the final state.
+
+    ``loader`` and ``valid_loader`` have ``epoch(e, skip=0)`` yielding
+    ``(waveforms, lengths)`` numpy batches (``DistillDataLoader``).
+    ``proj_state_dict`` warm-starts the projections (reference
+    final_distill.py:93)."""
+    device = resolve_device(device)
+    exp_dir = pathlib.Path(exp_dir)
+    (exp_dir / "ckpts").mkdir(parents=True, exist_ok=True)
+    ckpt_path = exp_dir / "ckpts" / "last.pt"
+    accum = max(cfg.accum_grad, 1)
+
+    state, tx = init_train_state(student=student, cfg=cfg,
+                                 teacher_embed_dim=teacher.spec.embed_dim, seed=seed,
+                                 device=device)
+    if proj_state_dict is not None:
+        projs = projections_from_state_dict(proj_state_dict, cfg.distill_mode,
+                                            cfg.distill_layer_groups, device=device)
+        for p in flatten_params(projs).values():
+            p.requires_grad_(True)
+        state.projs = projs
+
+    resume_pos = (0, 0)  # (epoch, batches already consumed in that epoch)
+    if resume:
+        resume_pos = load_train_state(resume, state, accum_grad=accum)
+        print(f"[train] resumed from {resume} at step {state.step} "
+              f"(epoch {resume_pos[0]}, batch {resume_pos[1]})", flush=True)
+
+    # SIGTERM checkpoints the full training state before the process exits
+    # (the reference relies on manual --resume_checkpoint only)
+    stop_requested = {"flag": False}
+
+    def _on_sigterm(signum, frame):
+        stop_requested["flag"] = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread
+        prev_handler = None
+
+    # wall-clock deadline: DPHUBERT_DEADLINE_TS (unix seconds) turns a hard
+    # end time into a clean checkpoint-and-stop; the CLIs exit 76 on it (75
+    # for preemption), so a recipe script does not resume into the same
+    # deadline.  0 or unset disables it.
+    deadline_ts = float(os.environ.get("DPHUBERT_DEADLINE_TS", 0) or 0)
+
+    logger = MetricLogger(exp_dir, log_interval)
+    step_fn = make_train_step(teacher, cfg, tx)
+    eval_fn = make_eval_step(teacher, cfg) if valid_loader is not None else None
+
+    max_micro_steps = cfg.max_updates * accum
+    step = state.step
+    epoch, skip = resume_pos
+    batch_in_epoch = skip
+    done = False
+    last_val_step = -1
+    last_saved = {"step": -1}
+    why = None
+
+    def _checkpoint():
+        if step == last_saved["step"]:
+            return
+        last_saved["step"] = step
+        save_train_state(ckpt_path, state, epoch=epoch, batch_in_epoch=batch_in_epoch,
+                         accum_grad=accum)
+
+    def _validate():
+        _run_validation(eval_fn, state, valid_loader, step)
+
+    try:
+        while not done:
+            epoch_yielded = 0
+            for wave, lengths, audio_sec in _device_prefetch(
+                    _epoch_iter(loader, epoch, skip), device):
+                state, metrics = step_fn(state, (wave, lengths))
+                epoch_yielded += 1
+                prev_step = step
+                step += 1
+                batch_in_epoch += 1
+                metrics["updates"] = step // accum
+                logger.log(step, metrics, audio_seconds=audio_sec)
+                if step // ckpt_interval > prev_step // ckpt_interval:
+                    _checkpoint()
+                # at train960 scale one epoch is tens of thousands of steps,
+                # so validation also fires every val_interval steps
+                if (eval_fn is not None and val_interval
+                        and step // val_interval > prev_step // val_interval):
+                    _validate()
+                    last_val_step = step
+                if stop_requested["flag"]:
+                    why = "sigterm"
+                elif stop_at_step is not None and prev_step < stop_at_step <= step:
+                    why = "stop_at_step"
+                elif deadline_ts and time.time() >= deadline_ts:
+                    why = "deadline"
+                if why:
+                    _checkpoint()
+                    print(f"[train] preempted ({why}): checkpointed at step {step}, "
+                          "exiting", flush=True)
+                    done = True
+                    break
+                if step >= max_micro_steps:
+                    done = True
+                    break
+            if done:
+                break  # keep (epoch, batch_in_epoch) for the final checkpoint
+            if epoch_yielded == 0 and skip == 0:
+                # an epoch with nothing skipped and nothing yielded would spin
+                # forever: the corpus cannot fill one batch at any rung
+                raise RuntimeError(
+                    f"loader produced no batches in epoch {epoch}: corpus too "
+                    "small for the configured seconds_per_batch"
+                )
+            if eval_fn is not None:
+                _validate()
+                last_val_step = step
+            epoch += 1
+            skip = 0
+            batch_in_epoch = 0
+
+        # validate once on the final state of a completed run, even when it
+        # ends mid-epoch (a preempted run skips this: it will resume)
+        if eval_fn is not None and why is None and step > 0 and last_val_step != step:
+            _validate()
+        _checkpoint()
+    finally:
+        logger.close()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+    if stop_info is not None:
+        stop_info["why"] = why
+    return state
+
+
+def _device_prefetch(it, device: torch.device):
+    """Run one batch ahead: the host-to-card copy of batch N+1 (from pinned
+    memory, non-blocking) is issued before step N runs, so it overlaps
+    step N's kernels.  Yields (waveforms on the device, lengths, audio
+    seconds)."""
+    prev = None
+    for wave, lengths in it:
+        audio_sec = wave.size / SAMPLE_RATE
+        t = torch.from_numpy(wave)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        cur = (t, lengths, audio_sec)
+        if prev is not None:
+            yield prev
+        prev = cur
+    if prev is not None:
+        yield prev
+
+
+def _epoch_iter(loader, epoch: int, skip: int):
+    """loader.epoch with a resume skip; loaders without ``skip`` support
+    (e.g. test doubles) fall back to iterate-and-drop."""
+    if not skip:
+        return loader.epoch(epoch)
+    try:
+        return loader.epoch(epoch, skip=skip)
+    except TypeError:
+        it = loader.epoch(epoch)
+        for _ in range(skip):
+            next(it, None)
+        return it
+
+
+def _run_validation(eval_fn, state: TrainState, valid_loader, step: int) -> None:
+    """Mean validation loss with the compiled eval gates, read from the
+    card once at the end."""
+    gates = None
+    if has_gates(state.student.spec):
+        gates = compile_gates(state.student.spec,
+                              unflatten_params(dict(state.student.named_parameters())))
+    losses = [eval_fn(state, (wave, lengths), gates)["loss"]
+              for wave, lengths in valid_loader.epoch(0)]
+    if losses:
+        mean = torch.stack(losses).float().mean().item()
+        print(f"[valid] step={step} loss={mean:.4f} ({len(losses)} batches)", flush=True)
+    else:
+        print(f"[valid] step={step} skipped: validation set too small "
+              "to fill one batch", flush=True)
+
+
+def export_student_checkpoint(state: TrainState, cfg: DistillConfig, path) -> None:
+    """Write the stage output as a portable ``{config, state_dict,
+    distill_linear_projs}`` checkpoint, the input of the prune and export
+    CLIs (and of the reference's tooling, through the .pth format)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state.student.state_dict().items()}
+    projs = projections_to_state_dict(state.projs, cfg.distill_mode, cfg.distill_layer_groups)
+    save_checkpoint(path, state.student.config, sd, projs)

@@ -22,7 +22,12 @@ from dphubert_torch.ops.attention_common import (
     dropout_threshold,
 )
 from dphubert_torch.ops.flash_attention import (
+    FlashAttentionFn,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_qkv,
     flash_attention_reference,
 )
 from dphubert_torch.ops.packed_attention import (
@@ -282,9 +287,11 @@ def test_packed_attention_fn_gradcheck(lengths, rate):
 
 
 def test_flash_route_refuses_training():
-    """The flash route has no backward yet: with grad enabled or with
-    dropout it raises, on the CPU as on the card, and never trains silently
-    without dropout.  3 heads x 16 at L = 800 take the flash route."""
+    """The forward-only flash wrapper refuses autograd and names the
+    differentiable form; the layer's flash route (3 heads x 16 at L = 800)
+    no longer refuses training: with grad enabled and dropout on it goes
+    through FlashAttentionFn, on the CPU as on the card, and every
+    parameter gets a finite gradient."""
     spec = AttentionSpec(embed_dim=48, num_heads=3, head_dim=16, dropout=0.1)
     attn = SelfAttention(spec)
     gen = torch.Generator().manual_seed(0)
@@ -292,14 +299,80 @@ def test_flash_route_refuses_training():
         torch.nn.init.normal_(p, std=0.1, generator=gen)
     x = torch.randn(1, 800, 48, generator=gen)
     assert attention_route(800, 3, 16) == "flash"
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        attn(x, None)  # parameters require grad
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        attn(x, None, generator=gen)  # dropout on
+    attn(x, None, generator=gen).square().sum().backward()
+    for name, p in attn.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     with torch.no_grad():
         assert attn(x, None).shape == (1, 800, 48)  # serving still runs
-    with pytest.raises(NotImplementedError, match="forward-only"):
+    with pytest.raises(NotImplementedError, match="FlashAttentionFn"):
         flash_attention(*(t.requires_grad_() for t in torch.randn(3, 1, 2, 40, 16)))
+
+
+def _jax_flash_vjp(q, k, v, do, lengths, rate, key_seed):
+    """The TPU flash kernels in interpret mode: forward and jax.vjp, plus
+    the int32 seed the JAX wrapper derives from its dropout key."""
+    import jax
+    import jax.numpy as jnp
+
+    j_flash = _tpu_op("flash_attention", "flash_attention")
+    j_len = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    rng = jax.random.key(key_seed) if rate else None
+    seed = int(jax.random.bits(rng, (1,), jnp.uint32).astype(jnp.int32)[0]) if rate else 0
+
+    def f(q_, k_, v_):
+        return j_flash(q_, k_, v_, j_len, interpret=True, dropout_rate=rate, dropout_rng=rng)
+
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))], seed
+
+
+@pytest.mark.parametrize("B,H,L,D", [(2, 3, 200, 16), (2, 2, 300, 64)])
+@pytest.mark.parametrize("with_lengths", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_forward_and_backward_match_pallas_vjp(jnp, B, H, L, D, with_lengths, rate):
+    """Plain flash forward with dropout and FlashAttentionFn's backward
+    against the TPU flash kernels (interpret mode) and their custom VJP,
+    given the same int32 seed; fp32, unit-normal inputs, bound 1e-5
+    absolute (only summation order differs).  Whole arrays: the JAX wrapper
+    pads L to its block and masks the pad, the same math unpadded."""
+    rng = np.random.default_rng(L + 7 * B + int(10 * rate) + with_lengths)
+    q, k, v, do = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(4))
+    lengths = [L, L * 2 // 3] if with_lengths else None
+    want, want_grads, seed = _jax_flash_vjp(q, k, v, do, lengths, rate, key_seed=L + B)
+    t_len = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    t_seed = torch.tensor([seed], dtype=torch.int32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).requires_grad_() for x in (q, k, v, do))
+    out, m, l = flash_attention(tq.detach(), tk.detach(), tv.detach(), t_len,
+                                dropout_rate=rate, seed=t_seed)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=0)
+    got = FlashAttentionFn.apply(tq, tk, tv, t_len, t_seed, D ** -0.5, rate)
+    np.testing.assert_array_equal(got.detach().numpy(), out.numpy())
+    got.backward(tdo.detach())
+    for name, t, w in zip("qkv", (tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=1e-5, rtol=0, err_msg=f"d{name}")
+    # the wrappers of the two backward kernels run the same plain version
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=t_seed)
+    dq, di = flash_attention_bwd_dq(tq.detach(), tk.detach(), tv.detach(), out, tdo.detach(),
+                                    m, l, t_len, **kw)
+    dk, dv = flash_attention_bwd_dkv(tq.detach(), tk.detach(), tv.detach(), out, tdo.detach(),
+                                     m, l, di, t_len, **kw)
+    for name, g, t in zip("qkv", (dq, dk, dv), (tq, tk, tv)):
+        np.testing.assert_array_equal(g.numpy(), t.grad.numpy(), err_msg=f"d{name}")
+    np.testing.assert_allclose(di.numpy(), (out * tdo.detach()).sum(-1).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("lengths,rate", [(None, 0.0), ([12, 7], 0.2), ([5, 12], 0.0)])
+def test_flash_attention_fn_gradcheck(lengths, rate):
+    """gradcheck of FlashAttentionFn in float64 on the CPU, dropout
+    included; 2 heads x 4 at L = 12."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 2, 12, 4, dtype=torch.float64, generator=gen, requires_grad=True)
+               for _ in range(3))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    seed = torch.tensor([913], dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: FlashAttentionFn.apply(a, b, c, lens, seed, 0.35, rate), (q, k, v)
+    )
 
 
 def _card():
@@ -411,3 +484,81 @@ def test_kernels_match_plain_versions_on_card(dtype, atol):
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     with pytest.raises(NotImplementedError, match="forward-only"):
         packed_attention(qg, kg, vg, lens, num_heads=H)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_flash_dropout_mask_read_out_of_the_forward(device):
+    """The flash forward's dropout mask, bit for bit the plain mask, read
+    out as in ``test_dropout_mask_read_out_of_the_forward`` on the (B, H, L,
+    D) layout; on the card that is the device hash inside
+    ``flash_attention_fwd``.  L = 130 spans three 64-row tiles."""
+    if device == "cuda":
+        _card()
+    B, H, L, D, rate = 2, 11, 130, 64, 0.1
+    keep = 1.0 - rate
+    j = torch.arange(L, device=device)
+    v1 = torch.zeros(L, D, device=device)
+    v1[j, j % D] = 2.0 ** (j // D).float()
+    v = v1.expand(B, H, L, D).contiguous()
+    qk = torch.zeros_like(v)
+    b = torch.arange(B, device=device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device).view(1, H, 1, 1)
+    for seed in (-123456789, 2**31 - 1, -2**31):
+        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
+        with torch.no_grad():
+            out, _, l = flash_attention(qk, qk, v, None, dropout_rate=rate, seed=t_seed)
+        assert torch.equal(l, torch.full_like(l, float(L)))  # l is the undropped sum
+        code = torch.round(out.double() * L * keep).long()
+        got = (code[..., j % D] >> (j // D)) & 1
+        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
+        assert torch.equal(got.bool(), want)
+        assert 0.85 < want.float().mean().item() < 0.95
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,lengths,rate", [(11, None, 0.1), (9, [333, 200, 1], 0.0),
+                                            (9, [333, 64, 130], 0.1)])
+def test_flash_backward_kernels_match_plain_versions_on_card(dtype, rel, H, lengths, rate):
+    """The flash forward with dropout, dq and dkv against their plain
+    versions, through FlashAttentionFn on (B, H, L, D) views of a fused QKV
+    tensor (the model's strides), with the launch counts; a second backward
+    is bit-identical (no atomics).  Bound as for the packed kernels."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, L, D = 3, 333, 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(B, L, H * D, device="cuda", generator=gen).to(dtype)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([-424242], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=seed)
+
+    def heads(t):
+        return t.view(B, L, H, D).transpose(1, 2)
+
+    def close(got, want, what):
+        err = (got.float() - want.float()).abs().max().item()
+        bound = rel * want.float().abs().max().item()
+        assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+    q, k, v = (heads(t) for t in qkv.split(H * D, dim=-1))
+    with torch.no_grad():
+        out, _, _ = flash_attention(q, k, v, lens, **kw)
+        close(out, flash_attention_reference(q, k, v, lens, **kw)[0], "out")
+    counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+
+    def grad():
+        x = qkv.clone().requires_grad_()
+        y = flash_attention_qkv(x, lens, num_heads=H, **kw)
+        y.backward(dout)
+        return y.detach(), x.grad
+
+    y, g = grad()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(y, out.transpose(1, 2).reshape(B, L, H * D), atol=0, rtol=0)
+    want = flash_attention_bwd_reference(q, k, v, out, heads(dout).contiguous(), lens, **kw)
+    for name, got, w in zip("qkv", g.split(H * D, dim=-1), want):
+        close(heads(got), w, f"d{name}")
+    assert torch.equal(g, grad()[1])

@@ -58,22 +58,24 @@ def test_projections_match_and_round_trip():
     groups = parse_layer_groups("0.4,8,12")
     assert groups == j_proj.parse_layer_groups("0.4,8,12") == ((0,), (4, 8, 12))
     for s_dim, t_dim in ((8, 8), (6, 10), (10, 6)):
-        got = init_projections("layer2layer", groups, s_dim, t_dim)
+        got = init_projections("layer2layer", groups, s_dim, t_dim, device="cpu")
         want = j_proj.init_projections("layer2layer", groups, s_dim, t_dim, jax.random.key(0))
         for gi in ("0", "1"):
             for k in ("weight", "bias"):
                 np.testing.assert_array_equal(got["groups"][gi][k].numpy(),
                                               np.asarray(want["groups"][gi][k]))
     for mode in ("layer2layer", "predlayer"):
-        projs = init_projections(mode, groups, 8, 12, torch.Generator().manual_seed(0))
+        projs = init_projections(mode, groups, 8, 12, torch.Generator().manual_seed(0),
+                                 device="cpu")
         sd = projections_to_state_dict(projs, mode, groups)
         j_back = j_proj.projections_from_state_dict(sd, mode, groups)
         assert j_proj.projections_to_state_dict(j_back, mode, groups).keys() == sd.keys()
-        back = projections_from_state_dict(sd, mode, groups)
+        back = projections_from_state_dict(sd, mode, groups, device="cpu")
         for k, v in pt.flatten_params(back).items():
             np.testing.assert_array_equal(v.numpy(), pt.flatten_params(projs)[k].numpy())
     bound = 1.0 / np.sqrt(8)
-    w = init_projections("predlayer", groups, 8, 12, torch.Generator().manual_seed(1))
+    w = init_projections("predlayer", groups, 8, 12, torch.Generator().manual_seed(1),
+                         device="cpu")
     assert all(float(t.abs().max()) <= bound for t in pt.flatten_params(w).values())
 
 
@@ -264,3 +266,63 @@ def test_entry_points_need_cuda_or_cpu_and_refuse_unported_options():
     with pytest.raises(ValueError, match="log_alpha"):
         init_train_state(student=student, cfg=DistillConfig(use_reg=False),
                          teacher_embed_dim=64, device="cpu")
+
+
+def test_flash_route_training_step_matches_jax_grad(monkeypatch):
+    """A pruned student whose head counts cannot be grouped trains through
+    the flash route: one clip of 15.62 s (249,920 samples, L = 780 frames,
+    as the top rung of the loader's ladder), layer 0 with 16 heads x 16
+    (packed, two groups of 128 lanes) and layer 1 with 3 heads x 16 (flash:
+    no group width is a multiple of 128).  The gradient of every parameter
+    of a loss over all hidden states, dropout off, matches jax.grad of the
+    TPU package's model (its dense path on the CPU) within 1e-5 of the
+    gradient's largest entry, or of 1e-3 x the largest entry of all
+    gradients where a gradient is 0 (fp32; summation order only)."""
+    from dphubert_torch.models import components
+    from dphubert_torch.models.components import attention_route
+
+    cfg = _tiny_w2v2_config(
+        extractor_conv_layer_config=[[8, 10, 5]] + [[8, 3, 2]] * 4 + [[8, 2, 2]] * 2,
+        encoder_num_layers=2, encoder_use_attention=[True, True],
+        encoder_use_feed_forward=[True, True], encoder_num_heads=[16, 3],
+        encoder_ff_interm_features=[96, 40],
+    )
+    T = 249_920
+    jm = j_wav2vec2_model(**cfg)
+    params = jm.init(jax.random.key(5))
+    rng = np.random.default_rng(6)
+    wave = (0.1 * rng.standard_normal((1, T))).astype(np.float32)
+    L = 780
+    assert [attention_route(L, h, 16) for h in (16, 3)] == ["packed", "flash"]
+    weights = [rng.standard_normal((1, L, 64)).astype(np.float32) for _ in range(3)]
+
+    def j_loss(p):
+        outs, _ = jm.extract_features(p, jnp.asarray(wave))
+        return sum(jnp.sum(o * w) for o, w in zip(outs, weights))
+
+    want = pt.flatten_params(jax.tree.map(np.asarray, jax.jit(jax.grad(j_loss))(params)))
+    g_max = max(np.abs(w).max() for w in want.values())
+
+    calls = []
+    real = components.flash_attention_qkv
+
+    def counting(qkv, *args, **kw):
+        calls.append((tuple(qkv.shape), qkv.requires_grad))
+        return real(qkv, *args, **kw)
+
+    monkeypatch.setattr(components, "flash_attention_qkv", counting)
+    model = pt.wav2vec2_model(device="cpu", **cfg)
+    model.load_state_dict(pt.state_dict_from_jax(params))
+    for p in model.parameters():  # dummy_weight too, as jax.grad sees every leaf
+        p.requires_grad_(True)
+    outs, _ = model.extract_features(torch.from_numpy(wave), training=True)
+    loss = sum((o * torch.from_numpy(w)).sum() for o, w in zip(outs, weights))
+    loss.backward()
+    assert calls == [((1, L, 3 * 3 * 16), True)]  # layer 1 only, with autograd
+    for name, p in model.named_parameters():
+        w = want[name]
+        err = np.abs(p.grad.numpy() - w).max()
+        # the key biases' gradient is 0 (softmax ignores a constant added to
+        # a row's scores): both sides hold rounding noise there
+        scale = max(np.abs(w).max(), 1e-3 * g_max)
+        assert err <= 1e-5 * scale, (name, err, np.abs(w).max())
