@@ -24,10 +24,19 @@ full width with random weights from seeds:
 * the four-stage recipe through the port's CLI functions on synthetic WAVs:
   prepare_data, distill (and a deadline stop, exit 76, resumed), prune,
   final_distill of the pruned student and of the r2-heads student,
-  save_final_ckpt, and the final checkpoint served.
+  save_final_ckpt, and the final checkpoint served;
+* DPWavLM: WavLM Base and the pruned WavLM student of
+  ``docs/convergence_wavlm_r4_pruned_config.json`` served; the DPWavLM
+  stage-1 step (teacher ``wavlm_base``, the gated student) held card
+  against CPU and bf16 against fp32 at 2 x 2 s, on the single-KV-block route
+  and again on the general route (``DPHUBERT_WAVLM_SINGLE_BLOCK=0``), then
+  timed in bf16 at B = 16 x 15 s with dropout on; and the WavLM recipe
+  through the CLIs (stage 1, prune, final distill, export, serving).
 
-Every kernel is held against its plain PyTorch version on the card at the
-shapes its path gives it, timed beside its bound and a library call, and
+Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
+WavLM's gated-bias attention) is held against its plain PyTorch version on
+the card at the shapes its path gives it, timed beside its bound and a
+library call, and
 each path is checked to have gone through its kernels (launch counts, set
 to 0 just before the path and read just after, exactly what the routing
 rule predicts).  Each phase prints JSON lines; any failure raises and the
@@ -87,6 +96,19 @@ from dphubert_torch.ops.packed_attention import (
     packed_attention_bwd_reference,
     packed_attention_reference,
 )
+from dphubert_torch.ops.wavlm_attention import (
+    wavlm_attention,
+    wavlm_attention_bwd_dbias,
+    wavlm_attention_bwd_dkv,
+    wavlm_attention_bwd_dkv_general,
+    wavlm_attention_bwd_dq,
+    wavlm_attention_bwd_fused,
+    wavlm_attention_bwd_reference,
+    wavlm_attention_fwd,
+    wavlm_attention_fwd_general,
+    wavlm_attention_reference,
+    wavlm_route,
+)
 from dphubert_torch.params import unflatten_params
 from dphubert_torch.serve import Predictor, pad_batch
 from dphubert_torch.train import (
@@ -102,6 +124,8 @@ SR = 16000
 # bf16 on the tensor cores, fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+# the kernels' finite mask value, for the library call's materialised mask
+NEG_INF_MASK = -0.7 * float(np.finfo(np.float32).max)
 # the smoke's clips: batch 1 (8 clips, padded to 16 s: the packed kernel)
 # and batch 2 (2 clips, padded to 26 s: the flash kernel); the Predictor
 # sorts by length, so extract() on all ten clips runs exactly these batches
@@ -155,6 +179,20 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                f"{TPU_OPS}/flash_attention.py:444"),
     "flash_attention_bwd_dkv": ("dphubert_torch/csrc/attention_bwd.cu",
                                 f"{TPU_OPS}/flash_attention.py:402"),
+    "wavlm_attention_fwd": ("dphubert_torch/csrc/wavlm_attention.cu",
+                            f"{TPU_OPS}/wavlm_attention.py:216"),
+    "wavlm_attention_bwd_dkv": ("dphubert_torch/csrc/wavlm_attention.cu",
+                                f"{TPU_OPS}/wavlm_attention.py:642"),
+    "wavlm_attention_bwd_fused": ("dphubert_torch/csrc/wavlm_attention.cu",
+                                  f"{TPU_OPS}/wavlm_attention.py:679"),
+    "wavlm_attention_fwd_general": ("dphubert_torch/csrc/wavlm_attention.cu",
+                                    f"{TPU_OPS}/wavlm_attention.py:268"),
+    "wavlm_attention_bwd_dkv_general": ("dphubert_torch/csrc/wavlm_attention.cu",
+                                        f"{TPU_OPS}/wavlm_attention.py:766"),
+    "wavlm_attention_bwd_dq": ("dphubert_torch/csrc/wavlm_attention.cu",
+                               f"{TPU_OPS}/wavlm_attention.py:805"),
+    "wavlm_attention_bwd_dbias": ("dphubert_torch/csrc/wavlm_attention.cu",
+                                  f"{TPU_OPS}/wavlm_attention.py:844"),
 }
 WRAPPERS = {
     "packed_attention_fwd": packed_attention,
@@ -163,6 +201,13 @@ WRAPPERS = {
     "packed_attention_bwd_dkv": packed_attention_bwd_dkv,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "wavlm_attention_fwd": wavlm_attention_fwd,
+    "wavlm_attention_bwd_dkv": wavlm_attention_bwd_dkv,
+    "wavlm_attention_bwd_fused": wavlm_attention_bwd_fused,
+    "wavlm_attention_fwd_general": wavlm_attention_fwd_general,
+    "wavlm_attention_bwd_dkv_general": wavlm_attention_bwd_dkv_general,
+    "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
+    "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
 }
 # the loader's top rung (cli/common.py: rungs from 32,000 to 250,000
 # samples, 12 shapes): every clip of 249,920 to 250,000 samples lands there,
@@ -171,6 +216,8 @@ WRAPPERS = {
 TOP_RUNG = 249_920
 FINAL_B = 5
 R2_CONFIG = REPO / "docs" / "pruned_config_r2.json"
+WAVLM_PRUNED_CONFIG = REPO / "docs" / "convergence_wavlm_r4_pruned_config.json"
+WAVLM_GENERAL_BLOCK_KV = 128  # an explicit block_kv < Lp: the general route
 
 
 def r2_all_attention_config() -> dict:
@@ -231,31 +278,45 @@ def dtype_name(dtype) -> str:
 
 
 def _smem_bytes(kernel: str, d: int) -> int:
-    """Dynamic shared memory of an instantiation (all fp32 tiles)."""
+    """Dynamic shared memory of an instantiation (all fp32 tiles); for the
+    WavLM dq side without its dbias strip, which adds 128 bytes per 32-row x
+    column (ceil64(L) + 8 columns in the fused entry, 72 in the dbias one)."""
     tile = 64 * (d + 1)
     return 4 * {
         "attention_fwd_kernel": 2 * tile + 64 * d + 64 * 65,
         "attention_bwd_dq_kernel": 4 * tile + 64 * 65 + 192,
         "attention_bwd_dkv_kernel": 4 * tile + 2 * 64 * 65 + 192,
+        "wavlm_fwd_kernel": 2 * tile + 64 * d + 64 * 65,
+        "wavlm_dkv_kernel": 4 * tile + 2 * 64 * 65 + 256,
+        "wavlm_bwd_q_kernel": tile + 2 * 64 * (d + 1) + 32 * 65 + 128,
     }[kernel]
 
 
 def _ptxas(report: str):
-    """(kernel, dtype, head_dim, registers, spill bytes) per instantiation."""
+    """(kernel, dtype, head_dim, registers, spill bytes) per instantiation;
+    the WavLM dq-side body also names its (dq, dbias) switches."""
     rows = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"(attention_fwd_kernel|attention_bwd_dq_kernel|"
-                         r"attention_bwd_dkv_kernel)I(13__nv_bfloat16|f)Li(\d+)E", block)
+                         r"attention_bwd_dkv_kernel|wavlm_fwd_kernel|wavlm_dkv_kernel|"
+                         r"wavlm_bwd_q_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
+                         block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         kernel, d = name.group(1), int(name.group(3))
-        rows.append({
+        row = {
             "kernel": kernel, "dtype": "float32" if name.group(2) == "f" else "bfloat16",
             "head_dim": d, "registers": int(regs.group(1)),
             "spill_stores_bytes": int(spills.group(1)), "spill_loads_bytes": int(spills.group(2)),
             "dynamic_smem_bytes": _smem_bytes(kernel, d),
-        })
+        }
+        if name.group(4) is not None:
+            row["dq"], row["dbias"] = name.group(4) == "1", name.group(5) == "1"
+        rows.append(row)
     return rows
+
+
+SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 20))
 
 
 def phase_card() -> str:
@@ -266,14 +327,14 @@ def phase_card() -> str:
           "count": torch.cuda.device_count()})
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from the sources
     t0 = time.perf_counter()
-    _build.build(["attention_fwd", "attention_bwd"])
+    _build.build([name for name, _ in SOURCES])
     seconds = time.perf_counter() - t0
-    for name, count in (("attention_fwd", 4), ("attention_bwd", 8)):
+    for name, count in SOURCES:
         rows = _ptxas(_build.build_reports[name]["ptxas"])
         check(len(rows) == count, f"{name}: expected {count} instantiations, got {len(rows)}")
         emit({"phase": "build", "source": f"dphubert_torch/csrc/{name}.cu",
               "seconds": _build.build_reports[name]["seconds"], "ptxas": rows})
-    emit({"phase": "build", "wall_seconds_both": seconds})
+    emit({"phase": "build", "wall_seconds_all": seconds})
     return smi
 
 
@@ -580,6 +641,196 @@ def phase_flash_kernels() -> dict:
     return results
 
 
+def wavlm_bound_ms(kind, B, L, H, D, lengths, dtype):
+    """Least time for one WavLM entry's work on these inputs.  Operations
+    per (query, valid key, head): fwd 4*D (QK^T, PV) + 2 (gate * bias);
+    fused 6*D (S, dP, dQ) + 6 (the bias term, ds * bias, gate * ds); dq
+    6*D + 4; dbias 4*D (S, dP) + 4; dkv 8*D (S, dP, dV, dK) + 2.  Bytes:
+    each input read once (q, out, dout over all rows; k, v over the valid
+    keys; the (H, L, valid) bias; gate, m, l, di) and each output written
+    once (fwd: out, m, l; fused: dq, dgate, dbias, di; dq: dq, dgate, di;
+    dbias: dbias; dkv: dk, dv)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    kv = _valid_keys(lengths, B, L)
+    pairs = H * L * sum(kv)
+    rows, kv_rows = B * L * H * D * es, sum(kv) * H * D * es
+    stat, bias = B * H * L * 4, H * L * max(kv) * 4
+    ops_per_pair, nbytes = {
+        "fwd": (4 * D + 2, 2 * rows + 2 * kv_rows + bias + stat + 2 * stat),
+        "fused": (6 * D + 6, 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat
+                  + H * L * L * 4),
+        "dq": (6 * D + 4, 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat),
+        "dbias": (4 * D + 4, 3 * rows + 2 * kv_rows + bias + 3 * stat + H * L * L * 4),
+        "dkv": (8 * D + 2, 2 * rows + 2 * kv_rows + bias + 4 * stat + 2 * kv_rows),
+    }[kind]
+    return _bound(float(ops_per_pair) * pairs, nbytes + 4 * B, dtype)
+
+
+def _wavlm_cases(spec):
+    """(label, B, L, H, lengths, backward): the DPWavLM step's shape (B =
+    16 x 15 s, no lengths, 12 heads), a pruned layer's 7 of 12 heads there,
+    and the serving batches (8 clips at L = 799 and 2 at L = 1299, with
+    their lengths, forward only)."""
+    L_train = int(frames(spec, [TRAIN_SECONDS])[0])
+    cases = [("train", TRAIN_B, L_train, 12, None, True),
+             ("train_7_heads", TRAIN_B, L_train, 7, None, True)]
+    for label, seconds, T in (("serve_batch1", BATCH1_SECONDS, 16 * SR),
+                              ("serve_batch2", BATCH2_SECONDS, 26 * SR)):
+        lengths = frames(spec, seconds).to(torch.int32).cuda()
+        L = int(output_lengths(spec, torch.tensor([T]))[0])
+        cases.append((label, len(seconds), L, 12, lengths, False))
+    return cases
+
+
+def _rel_row(pairs, dtype, what):
+    errs = {name: rel_error(got, ref, f"{what} {name}", dtype) for name, got, ref in pairs}
+    return {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "by_output": errs,
+            "tolerance": f"{REL_TOL[dtype]} x max |plain|"}
+
+
+def phase_wavlm_kernels(spec) -> dict:
+    """The seven WavLM entries against their plain versions, on (B, H, L,
+    D) views of a fused QKV tensor (the model's strides) with an fp32 bias
+    (H, L, L) and gate (B, H, L): the DPWavLM step's shape with dropout 0.1
+    in fp32 and bf16 (the single route's forward, fused backward and dkv;
+    the general entries, block_kv 128, on the same inputs, held against the
+    single ones too); 7 of 12 heads in bf16; the serving batches with their
+    lengths, forward only.  library = scaled_dot_product_attention with
+    the materialised (B, H, L, L) mask gate * bias (+ the key mask), the
+    mask built outside the timing; for the backward, its backward with the
+    mask needing a gradient."""
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    D = 64
+    scale = D ** -0.5
+    seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
+    for label, B, L, H, lengths, backward in _wavlm_cases(spec):
+        dtypes = ((torch.float32, torch.bfloat16) if label in ("train", "serve_batch1",
+                                                               "serve_batch2")
+                  else (torch.bfloat16,))
+        rate = DROPOUT if backward else 0.0
+        kw = dict(scale=scale, dropout_rate=rate, seed=seed)
+        for dtype in dtypes:
+            qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
+            dout = torch.randn(B, H, L, D, device="cuda", generator=gen).to(dtype)
+            bias = torch.randn(H, L, L, device="cuda", generator=gen)
+            gate = 1.0 + 2.0 * torch.rand(B, H, L, device="cuda", generator=gen)
+            q, k, v = (t.view(B, L, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+            args = (q, k, v, bias, gate)
+            mask = (gate[..., None] * bias[None])
+            if lengths is not None:
+                mask = mask.masked_fill(~key_mask(lengths, L), NEG_INF_MASK)
+            mask = mask.to(dtype)
+            common = {"path": "wavlm_serve" if not backward else "wavlm_train", "case": label,
+                      "dtype": dtype_name(dtype), "shape_BHLD": [B, H, L, D],
+                      "lengths": None if lengths is None else lengths.tolist(), "dropout": rate}
+            with torch.no_grad():
+                out, m, l = wavlm_attention_fwd(*args, lengths, **kw)
+                want, wm, wl = wavlm_attention_reference(*args, lengths, **kw)
+                torch.cuda.synchronize()
+                stats = {"m_max_abs_err": (m - wm).abs().max().item(),
+                         "l_max_rel_err": ((l - wl).abs() / wl).max().item()}
+                check(stats["m_max_abs_err"] <= 1e-4 and stats["l_max_rel_err"] <= 1e-4,
+                      f"wavlm fwd {label} {dtype} statistics: {stats}")
+                bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
+                row = {"phase": "kernel", "name": "wavlm_attention_fwd", **common,
+                       **rel_error(out, want, f"wavlm fwd {label} {dtype}", dtype), **stats,
+                       "ms": time_ms(lambda: wavlm_attention_fwd(*args, lengths, **kw)),
+                       "plain_ms": time_ms(lambda: wavlm_attention_reference(*args, lengths, **kw),
+                                           reps=5),
+                       "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)),
+                       "library": f"scaled_dot_product_attention forward, (B, H, L, L) mask "
+                                  f"gate * bias, dropout_p={rate}",
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                results[("wavlm_attention_fwd", label, dtype)] = row
+            if not backward:
+                del qkv, dout, bias, gate, mask, out, m, l, want
+                continue
+            with torch.no_grad():
+                dq, dgate, dbias, di = wavlm_attention_bwd_fused(*args, out, dout, m, l, lengths,
+                                                                 **kw)
+                dk, dv = wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lengths, **kw)
+                plain_bwd = lambda: wavlm_attention_bwd_reference(*args, out, dout, lengths, **kw)
+                wq, wk, wv, wbias, wgate = plain_bwd()
+                torch.cuda.synchronize()
+                plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+            # the library's backward: SDPA with the mask needing a gradient,
+            # dq, dk, dv and the mask's gradient together, without dropout
+            x = qkv.detach().requires_grad_()
+            xm = mask.detach().requires_grad_()
+            xq, xk, xv = (t.view(B, L, H, D).transpose(1, 2) for t in x.split(H * D, dim=-1))
+            y = F.scaled_dot_product_attention(xq, xk, xv, attn_mask=xm, scale=scale)
+            library_ms = time_ms(lambda: torch.autograd.grad(y, (x, xm), dout, retain_graph=True))
+            del x, xm, y
+            library = ("scaled_dot_product_attention backward without dropout, the (B, H, L, L) "
+                       "mask needing a gradient (dq, dk, dv and dmask together)")
+            entries = (
+                ("wavlm_attention_bwd_fused", "fused",
+                 (("dq", dq, wq), ("dgate", dgate, wgate), ("dbias", dbias, wbias)),
+                 lambda: wavlm_attention_bwd_fused(*args, out, dout, m, l, lengths, **kw)),
+                ("wavlm_attention_bwd_dkv", "dkv", (("dk", dk, wk), ("dv", dv, wv)),
+                 lambda: wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lengths, **kw)),
+            )
+            general = {}
+            if label == "train":
+                # the general route's entries on the same inputs: against the
+                # plain versions, and (fp32) against the single entries
+                with torch.no_grad():
+                    out_g, m_g, l_g = wavlm_attention_fwd_general(*args, lengths, **kw)
+                    dq_g, dgate_g, di_g = wavlm_attention_bwd_dq(*args, out, dout, m, l, lengths,
+                                                                 **kw)
+                    dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, lengths, **kw)
+                    dk_g, dv_g = wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g,
+                                                                 lengths, **kw)
+                    torch.cuda.synchronize()
+                general = {"out": (out_g, out), "m": (m_g, m), "l": (l_g, l), "dq": (dq_g, dq),
+                           "dgate": (dgate_g, dgate), "dbias": (dbias_g, dbias), "di": (di_g, di),
+                           "dk": (dk_g, dk), "dv": (dv_g, dv)}
+                vs_single = {n: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                             for n, (a, b) in general.items()}
+                if dtype == torch.float32:
+                    check(max(vs_single.values()) <= 1e-5,
+                          f"wavlm general vs single entries, fp32: {vs_single}")
+                bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
+                row = {"phase": "kernel", "name": "wavlm_attention_fwd_general", **common,
+                       "block_kv": WAVLM_GENERAL_BLOCK_KV,
+                       **rel_error(out_g, want, f"wavlm fwd general {label} {dtype}", dtype),
+                       "rel_err_vs_single": vs_single,
+                       "ms": time_ms(lambda: wavlm_attention_fwd_general(*args, lengths, **kw)),
+                       "plain_ms": results[("wavlm_attention_fwd", label, dtype)]["plain_ms"],
+                       "library_ms": results[("wavlm_attention_fwd", label, dtype)]["library_ms"],
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                results[("wavlm_attention_fwd_general", label, dtype)] = row
+                entries += (
+                    ("wavlm_attention_bwd_dq", "dq", (("dq", dq_g, wq), ("dgate", dgate_g, wgate)),
+                     lambda: wavlm_attention_bwd_dq(*args, out, dout, m, l, lengths, **kw)),
+                    ("wavlm_attention_bwd_dbias", "dbias", (("dbias", dbias_g, wbias),),
+                     lambda: wavlm_attention_bwd_dbias(*args, out, dout, m, l, lengths, **kw)),
+                    ("wavlm_attention_bwd_dkv_general", "dkv", (("dk", dk_g, wk), ("dv", dv_g, wv)),
+                     lambda: wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g, lengths,
+                                                             **kw)),
+                )
+            for name, kind, pairs, run in entries:
+                bound, by = wavlm_bound_ms(kind, B, L, H, D, lengths, dtype)
+                with torch.no_grad():
+                    ms = time_ms(run)
+                row = {"phase": "kernel", "name": name, **common,
+                       **_rel_row(pairs, dtype, f"{name} {label} {dtype}"),
+                       "ms": ms, "plain_ms": plain_ms,
+                       "plain": "wavlm_attention_bwd_reference (dq, dk, dv, dbias, dgate together)",
+                       "library_ms": library_ms, "library": library,
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                results[(name, label, dtype)] = row
+            del qkv, dout, bias, gate, mask, out, m, l, want, dq, dk, dv, dgate, dbias, di
+            del wq, wk, wv, wbias, wgate, general
+            torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: serving through the Predictor
 # ---------------------------------------------------------------------------
@@ -596,16 +847,31 @@ def reset_launch_counts() -> None:
 
 def model_launches(spec, L: int, backward: bool) -> dict:
     """Kernel launches of one pass of a model at L frames, from the routing
-    rule: a forward per attention layer, and dq and dkv with ``backward``."""
+    rules: a forward per attention layer, and its backward kernels with
+    ``backward``.  A WavLM model whose layer 0 keeps its attention (and so
+    the bias table) takes the WavLM kernels in every attention layer, on
+    the route ``wavlm_route`` gives (read at the call, as the model reads
+    it); every other layer takes the packed or flash route."""
     counts = dict.fromkeys(WRAPPERS, 0)
+    wavlm_bias = spec.is_wavlm and spec.layers[0].attention is not None
     for layer in spec.layers:
         if layer.attention is None:
             continue
-        route = attention_route(L, layer.attention.num_heads, layer.attention.head_dim)
-        counts[f"{route}_attention_fwd"] += 1
+        if wavlm_bias and wavlm_route(L) == "single":
+            fwd, bwd = "wavlm_attention_fwd", ("wavlm_attention_bwd_fused",
+                                               "wavlm_attention_bwd_dkv")
+        elif wavlm_bias:
+            fwd, bwd = "wavlm_attention_fwd_general", (
+                "wavlm_attention_bwd_dq", "wavlm_attention_bwd_dbias",
+                "wavlm_attention_bwd_dkv_general")
+        else:
+            route = attention_route(L, layer.attention.num_heads, layer.attention.head_dim)
+            fwd, bwd = f"{route}_attention_fwd", (f"{route}_attention_bwd_dq",
+                                                  f"{route}_attention_bwd_dkv")
+        counts[fwd] += 1
         if backward:
-            counts[f"{route}_attention_bwd_dq"] += 1
-            counts[f"{route}_attention_bwd_dkv"] += 1
+            for name in bwd:
+                counts[name] += 1
     return counts
 
 
@@ -688,10 +954,12 @@ def phase_slice(label: str, model) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def distill_models(device: str, **kw):
-    """Teacher ``hubert_base`` and the gated student (all five prune flags),
-    random weights from two seeds."""
-    teacher = pt.hubert_base(device=device, generator=torch.Generator().manual_seed(0), **kw)
+def distill_models(device: str, family: str = "hubert", **kw):
+    """Teacher ``hubert_base`` (or ``wavlm_base``: DPWavLM) and the gated
+    student (its config with all five prune flags), random weights from two
+    seeds."""
+    factory = pt.hubert_base if family == "hubert" else pt.wavlm_base
+    teacher = factory(device=device, generator=torch.Generator().manual_seed(0), **kw)
     student = pt.wav2vec2_model(device=device, generator=torch.Generator().manual_seed(1),
                                 **dict(teacher.config, **PRUNE_FLAGS))
     return teacher, student
@@ -776,17 +1044,55 @@ def step_check(label: str, teacher, student, cfg: DistillConfig, batch, gate_u=N
             "loss_fp32": mc["loss"], "loss_bf16": mb["loss"]}
 
 
-def phase_train_check() -> dict:
+def phase_train_check(family: str = "hubert", label: str = "train_check") -> dict:
     """The stage-1 step (gated student) on a small batch: 2 clips of 2 s,
-    lengths 2 s and 1.5 s, the same gate draws everywhere."""
-    teacher, student = distill_models("cuda", **NO_DROPOUT)
+    lengths 2 s and 1.5 s, the same gate draws everywhere; ``family``
+    "wavlm" is the DPWavLM step.
+
+    The DPWavLM check runs without the L1 term (``l1_weight=0``: cosine and
+    the Lagrangian): the L1 gradient is sign(residual) / N, and card and CPU
+    differ in the residuals by up to 1.4e-5, so a residual that close to 0
+    flips sign between them.  Measured (chip run, WavLM Base at this
+    batch): one flip among 608,256 residuals moved the last layer's
+    gradient by 0.3% and the bias table's by 0.17%; without the L1 term
+    every gradient agreed within 1.5e-5.  HuBERT's check at the same batch
+    has no flip and keeps the term; the L1 code is shared."""
+    teacher, student = distill_models("cuda", family, **NO_DROPOUT)
     u = gate_draws(student.spec, student, seed=3)
     rng = np.random.default_rng(4)
     wave = (0.1 * rng.standard_normal((2, 32000))).astype(np.float32)
     batch = (wave, np.array([32000, 24000], np.int32))
-    row = {"phase": "train_check", "batch": "2 clips of 2 s, lengths (32000, 24000)",
-           **step_check("train", teacher, student, DistillConfig(), batch, gate_u=u)}
+    cfg = DistillConfig() if family == "hubert" else DistillConfig(l1_weight=0.0)
+    row = {"phase": label, "family": family,
+           "batch": "2 clips of 2 s, lengths (32000, 24000)", "l1_weight": cfg.l1_weight,
+           **step_check(label, teacher, student, cfg, batch, gate_u=u)}
     emit(row)
+    return row, teacher.spec, student.spec
+
+
+def phase_wavlm_general_check() -> dict:
+    """The DPWavLM check of ``phase_train_check`` on the general route
+    (``DPHUBERT_WAVLM_SINGLE_BLOCK=0``, the TPU package's escape hatch):
+    every WavLM layer runs the general forward, dq, dbias and dkv entries.
+    Launch counts are set to 0 just before and read just after: the card's
+    fp32 and bf16 passes each launch one teacher forward and one student
+    forward and backward."""
+    os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"] = "0"
+    try:
+        reset_launch_counts()
+        row, spec_t, spec_s = phase_train_check("wavlm", "wavlm_general_check")
+        counts = launch_counts()
+        L = int(frames(spec_t, [2.0])[0])
+        per_pass = add_counts((1, model_launches(spec_t, L, False)),
+                              (1, model_launches(spec_s, L, True)))
+    finally:
+        del os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"]
+    want = {k: 2 * v for k, v in per_pass.items()}
+    check(counts == want, f"wavlm general route: launches {counts}, expected {want}")
+    check(want["wavlm_attention_bwd_dbias"] == 24 and want["wavlm_attention_fwd"] == 0,
+          f"wavlm general route per pass {per_pass}")
+    emit({"phase": "wavlm_general_launches", "L": L, "launches": counts})
+    row["launches"] = counts
     return row
 
 
@@ -852,11 +1158,14 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
     return state, fields, hist
 
 
-def phase_train() -> dict:
+def phase_train(family: str = "hubert") -> dict:
     """The training path: bf16 distill steps at B = 16 x 15 s with dropout
-    on (HuBERT Base's rates), DistillConfig defaults, a batch that stays on
-    the card (as bench.py)."""
-    teacher, student = distill_models("cuda")
+    on (the teacher preset's rates), DistillConfig defaults, a batch that
+    stays on the card (as bench.py); ``family`` "wavlm" is the DPWavLM step
+    (bench.py's DPWavLM mode): exactly 24 WavLM forwards (12 teacher, 12
+    student), 12 fused backwards and 12 dkv a step, no packed or flash
+    kernel."""
+    teacher, student = distill_models("cuda", family)
     cfg = DistillConfig(compute_dtype="bfloat16")
     state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5,
                                  device="cuda")
@@ -867,17 +1176,25 @@ def phase_train() -> dict:
     L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
     per_step = add_counts((1, model_launches(teacher.spec, L, False)),
                           (1, model_launches(state.student.spec, L, True)))
-    check(per_step["packed_attention_fwd"] == 24 and per_step["packed_attention_bwd_dq"] == 12
-          and per_step["flash_attention_fwd"] == 0, f"stage-1 launches per step {per_step}")
-    state, fields, hist = timed_steps("train", make_train_step(teacher, cfg, tx), state, batch,
+    if family == "hubert":
+        check(per_step["packed_attention_fwd"] == 24 and per_step["packed_attention_bwd_dq"] == 12
+              and per_step["flash_attention_fwd"] == 0, f"stage-1 launches per step {per_step}")
+    else:
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update(wavlm_attention_fwd=24, wavlm_attention_bwd_fused=12,
+                    wavlm_attention_bwd_dkv=12)
+        check(per_step == want, f"DPWavLM launches per step {per_step}, expected {want}")
+    label = "train" if family == "hubert" else "wavlm_train"
+    state, fields, hist = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
                                       per_step, TRAIN_B * TRAIN_SECONDS)
     gap = [m["sparsity_expected"] - m["sparsity_target"] for m in hist]
     lam1 = state.lambdas["lambda1"].item()
     # dual ascent: λ1's gradient is (s - t), so λ1 moves with its sign
     check(lam1 != 0.0 and np.sign(lam1) == np.sign(np.mean(gap)),
           f"λ1 = {lam1} after steps with mean s - t = {np.mean(gap)}")
-    row = {"phase": "train", "model": "hubert_base teacher, gated hubert_base student",
-           "batch": [TRAIN_B, T], **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
+    row = {"phase": label, "model": f"{family}_base teacher, gated {family}_base student",
+           "batch": [TRAIN_B, T], "L": L, **fields, "lambda1_final": lam1,
+           "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
     return row
 
@@ -916,8 +1233,6 @@ def phase_final_distill_step() -> dict:
 # Phase 8: the four-stage pipeline through the port's CLI functions
 # ---------------------------------------------------------------------------
 
-PIPE_DIR = REPO / "build" / "smoke_pipeline"
-
 
 def write_wav(path, wave: np.ndarray) -> None:
     """16 kHz mono PCM16 WAV."""
@@ -931,40 +1246,37 @@ def write_wav(path, wave: np.ndarray) -> None:
         f.write(b"data" + len(pcm).to_bytes(4, "little") + pcm)
 
 
-def phase_pipeline() -> dict:
-    """run.sh's recipe on the card at full width: prepare_data, stage-1
-    distill (3 updates; again with a deadline in the past, exit 76, then
-    resumed to the end), prune, final distill of the pruned student (2
-    updates) and of the r2-heads student (3 updates, the flash route),
-    save_final_ckpt, and the final checkpoint served.  Each stage runs
-    through its CLI function with the default flags (bf16, 87.5 s per
-    batch: B = 5 x 249,920 samples) and --device cuda; launch counts are set
-    to 0 just before each stage and must be exactly what its steps and its
-    validation pass need."""
-    shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    root, tsv = PIPE_DIR / "librispeech", PIPE_DIR / "tsv"
-    rng = np.random.default_rng(11)
-    n_train, n_valid = 3 * FINAL_B, FINAL_B
-    for sub, prefix, n in (("train-clean-100/1/2", "u", n_train), ("dev-clean/3/4", "d", n_valid)):
+def write_corpus(pipe_dir: pathlib.Path, rng):
+    """15 training and 5 validation WAVs of 249,920-250,000 samples (all on
+    the loader's top rung) and their manifests -> (root, tsv)."""
+    shutil.rmtree(pipe_dir, ignore_errors=True)
+    root, tsv = pipe_dir / "librispeech", pipe_dir / "tsv"
+    for sub, prefix, n in (("train-clean-100/1/2", "u", 3 * FINAL_B),
+                           ("dev-clean/3/4", "d", FINAL_B)):
         (root / sub).mkdir(parents=True)
         for i in range(n):
             samples = TOP_RUNG + int(rng.integers(0, 81))  # 15.62-15.625 s: the top rung
             write_wav(root / sub / f"{prefix}{i:03d}.wav", 0.1 * rng.standard_normal(samples))
-    t0 = time.perf_counter()
     cli_prepare_data.cli_main(["--data", str(root), "--out", str(tsv), "--extension", "wav"])
-    teacher = pt.hubert_base(device="cpu", generator=torch.Generator().manual_seed(0))
-    teacher_ckpt = PIPE_DIR / "hubert_base_teacher.pth"
-    save_checkpoint(teacher_ckpt, teacher.config, teacher.state_dict())
-    spec_t = teacher.spec
-    del teacher
-    L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
-    common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
-              "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
-              "--num_workers", "4", "--device", "cuda"]
-    valid_batches = n_valid // FINAL_B
-    stages, total = [], dict.fromkeys(WRAPPERS, 0)
+    return root, tsv
 
-    def stage(label, module, argv, *, student_spec=None, steps=0, valid_passes=0, code=0):
+
+class Stages:
+    """Runs pipeline stages through their CLI functions: launch counts set
+    to 0 just before each stage and read just after, and held to exactly
+    what its steps and its validation pass need."""
+
+    def __init__(self, spec_t, L: int, valid_batches: int):
+        self.spec_t, self.L, self.valid_batches = spec_t, L, valid_batches
+        self.rows, self.total = [], dict.fromkeys(WRAPPERS, 0)
+
+    def _add(self, row):
+        for k in self.total:
+            self.total[k] += row["launches"][k]
+        self.rows.append(row)
+        emit({"phase": "pipeline_stage", **row})
+
+    def run(self, label, module, argv, *, student_spec=None, steps=0, valid_passes=0, code=0):
         reset_launch_counts()
         t = time.perf_counter()
         try:
@@ -978,97 +1290,176 @@ def phase_pipeline() -> dict:
         check(got == code, f"pipeline {label}: exit {got}, expected {code}")
         row = {"stage": label, "exit": got, "seconds": seconds, "launches": counts}
         if student_spec is not None:
-            per_step = add_counts((1, model_launches(spec_t, L, False)),
-                                  (1, model_launches(student_spec, L, True)))
-            per_valid = add_counts((1, model_launches(spec_t, L, False)),
-                                   (1, model_launches(student_spec, L, False)))
-            want = add_counts((steps, per_step), (valid_passes * valid_batches, per_valid))
+            per_step = add_counts((1, model_launches(self.spec_t, self.L, False)),
+                                  (1, model_launches(student_spec, self.L, True)))
+            per_valid = add_counts((1, model_launches(self.spec_t, self.L, False)),
+                                   (1, model_launches(student_spec, self.L, False)))
+            want = add_counts((steps, per_step), (valid_passes * self.valid_batches, per_valid))
             check(counts == want, f"pipeline {label}: launches {counts}, expected {want}")
-            row.update(steps=steps, validation_batches=valid_passes * valid_batches,
+            row.update(steps=steps, validation_batches=valid_passes * self.valid_batches,
                        launches_per_step=per_step, launches_per_validation_batch=per_valid)
-        for k in total:
-            total[k] += counts[k]
-        stages.append(row)
-        emit({"phase": "pipeline_stage", **row})
+        self._add(row)
         torch.cuda.empty_cache()
         return row
 
-    exp1, exp1b = PIPE_DIR / "stage1", PIPE_DIR / "stage1_deadline"
-    stage("distill", cli_distill, common + ["--student_ckpt", str(teacher_ckpt),
-                                            "--exp_dir", str(exp1), "--max_updates", "3"],
-          student_spec=spec_t, steps=3, valid_passes=1)
+    def serve(self, final, root, rng):
+        """The final checkpoint served: bf16 through the Predictor on the
+        corpus's validation clips and two short ones; fp32 card against the
+        CPU per layer."""
+        reset_launch_counts()
+        model = load_model(final, device="cuda")
+        clips = [load_audio(p)[0][0] for p in sorted((root / "dev-clean/3/4").glob("*.wav"))]
+        clips += [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (32000, 56000)]
+        feats = Predictor(model, dtype=torch.bfloat16).extract(clips)
+        for c, f in zip(clips, feats):
+            n = int(output_lengths(model.spec, torch.tensor([len(c)]))[0])
+            check(f.shape == (n, 768) and np.isfinite(f).all(), f"served features {f.shape}")
+        err = per_layer_card_vs_cpu(model, copy.deepcopy(model).to("cpu"), clips[-2:])
+        self._add({"stage": "serve final checkpoint", "clips": len(clips),
+                   "fp32_card_vs_cpu_max_abs": err, "launches": launch_counts()})
+        return model.spec
+
+
+def phase_pipeline() -> dict:
+    """run.sh's recipe on the card at full width: prepare_data, stage-1
+    distill (3 updates; again with a deadline in the past, exit 76, then
+    resumed to the end), prune, final distill of the pruned student (2
+    updates) and of the r2-heads student (3 updates, the flash route),
+    save_final_ckpt, and the final checkpoint served.  Each stage runs
+    through its CLI function with the default flags (bf16, 87.5 s per
+    batch: B = 5 x 249,920 samples) and --device cuda; launch counts are set
+    to 0 just before each stage and must be exactly what its steps and its
+    validation pass need."""
+    pipe_dir = REPO / "build" / "smoke_pipeline"
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    root, tsv = write_corpus(pipe_dir, rng)
+    teacher = pt.hubert_base(device="cpu", generator=torch.Generator().manual_seed(0))
+    teacher_ckpt = pipe_dir / "hubert_base_teacher.pth"
+    save_checkpoint(teacher_ckpt, teacher.config, teacher.state_dict())
+    spec_t = teacher.spec
+    del teacher
+    L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
+    common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
+              "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
+              "--num_workers", "4", "--device", "cuda"]
+    stages = Stages(spec_t, L, valid_batches=1)
+
+    exp1, exp1b = pipe_dir / "stage1", pipe_dir / "stage1_deadline"
+    stages.run("distill", cli_distill, common + ["--student_ckpt", str(teacher_ckpt),
+                                                 "--exp_dir", str(exp1), "--max_updates", "3"],
+               student_spec=spec_t, steps=3, valid_passes=1)
     distilled = exp1 / "ckpts" / "distilled.pth"
     check(distilled.exists(), "stage 1 wrote no distilled.pth")
     argv1b = common + ["--student_ckpt", str(teacher_ckpt), "--exp_dir", str(exp1b),
                        "--max_updates", "3"]
     os.environ["DPHUBERT_DEADLINE_TS"] = "1"  # 1970: always past
     try:
-        stage("distill, deadline", cli_distill, argv1b, student_spec=spec_t, steps=1, code=76)
+        stages.run("distill, deadline", cli_distill, argv1b, student_spec=spec_t, steps=1,
+                   code=76)
     finally:
         del os.environ["DPHUBERT_DEADLINE_TS"]
     last = exp1b / "ckpts" / "last.pt"
     check(last.exists() and not (exp1b / "ckpts" / "distilled.pth").exists(),
           "the deadline stop must checkpoint and export nothing")
-    stage("distill, resumed", cli_distill, argv1b + ["--resume_checkpoint", str(last)],
-          student_spec=spec_t, steps=2, valid_passes=1)
+    stages.run("distill, resumed", cli_distill, argv1b + ["--resume_checkpoint", str(last)],
+               student_spec=spec_t, steps=2, valid_passes=1)
     check((exp1b / "ckpts" / "distilled.pth").exists(), "the resumed stage 1 exported nothing")
 
-    stage("prune", cli_prune, ["--distilled_ckpt", str(distilled),
-                               "--original_ckpt", str(teacher_ckpt)])
+    stages.run("prune", cli_prune, ["--distilled_ckpt", str(distilled),
+                                    "--original_ckpt", str(teacher_ckpt)])
     pruned = exp1 / "ckpts" / "pruned_hubert_base.pth"
     pruned_cfg = load_checkpoint(pruned)["config"]
-    exp2 = PIPE_DIR / "stage2"
-    stage("final_distill", cli_final_distill,
-          common + ["--student_ckpt", str(pruned), "--exp_dir", str(exp2), "--max_updates", "2"],
-          student_spec=pt.spec_from_config(**pruned_cfg), steps=2, valid_passes=1)
+    exp2 = pipe_dir / "stage2"
+    stages.run("final_distill", cli_final_distill,
+               common + ["--student_ckpt", str(pruned), "--exp_dir", str(exp2),
+                         "--max_updates", "2"],
+               student_spec=pt.spec_from_config(**pruned_cfg), steps=2, valid_passes=1)
 
     r2_cfg = r2_all_attention_config()
     r2 = pt.wav2vec2_model(device="cpu", generator=torch.Generator().manual_seed(7), **r2_cfg)
-    r2_ckpt = PIPE_DIR / "r2_all_attention.pth"
+    r2_ckpt = pipe_dir / "r2_all_attention.pth"
     save_checkpoint(r2_ckpt, r2_cfg, r2.state_dict())
     del r2
     r2_spec = pt.spec_from_config(**r2_cfg)
-    r2_row = stage("final_distill, r2 heads", cli_final_distill,
-                   common + ["--student_ckpt", str(r2_ckpt), "--exp_dir", str(PIPE_DIR / "stage2_r2"),
-                             "--max_updates", "3"],
-                   student_spec=r2_spec, steps=3, valid_passes=1)
+    r2_row = stages.run("final_distill, r2 heads", cli_final_distill,
+                        common + ["--student_ckpt", str(r2_ckpt),
+                                  "--exp_dir", str(pipe_dir / "stage2_r2"), "--max_updates", "3"],
+                        student_spec=r2_spec, steps=3, valid_passes=1)
     check(r2_row["launches_per_step"]["flash_attention_fwd"] == 2
           and r2_row["launches_per_step"]["flash_attention_bwd_dq"] == 2
           and r2_row["launches_per_step"]["flash_attention_bwd_dkv"] == 2,
           f"r2 final distill: flash launches per step {r2_row['launches_per_step']}")
 
-    stage("save_final_ckpt", cli_save_final_ckpt,
-          ["--config_path", str(pruned),
-           "--ckpt_after_final_distill", str(exp2 / "ckpts" / "distilled.pth")])
+    stages.run("save_final_ckpt", cli_save_final_ckpt,
+               ["--config_path", str(pruned),
+                "--ckpt_after_final_distill", str(exp2 / "ckpts" / "distilled.pth")])
     final = exp2 / "ckpts" / "pruned_hubert_base.pth"
-    stage("load_dpmodel", cli_load_dpmodel, [str(final), "--device", "cuda"])
-
-    # the final checkpoint served: bf16 through the Predictor on clips of the
-    # corpus and two short ones; fp32 card against the CPU per layer
-    reset_launch_counts()
-    model = load_model(final, device="cuda")
-    clips = [load_audio(p)[0][0] for p in sorted((root / "dev-clean/3/4").glob("*.wav"))]
-    clips += [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (32000, 56000)]
-    feats = Predictor(model, dtype=torch.bfloat16).extract(clips)
-    for c, f in zip(clips, feats):
-        n = int(output_lengths(model.spec, torch.tensor([len(c)]))[0])
-        check(f.shape == (n, 768) and np.isfinite(f).all(), f"served features {f.shape}")
-    err = per_layer_card_vs_cpu(model, copy.deepcopy(model).to("cpu"), clips[-2:])
-    counts = launch_counts()
-    for k in total:
-        total[k] += counts[k]
-    served = {"stage": "serve final checkpoint", "clips": len(clips),
-              "fp32_card_vs_cpu_max_abs": err, "launches": counts}
-    emit({"phase": "pipeline_stage", **served})
-    stages.append(served)
-    del model
+    stages.run("load_dpmodel", cli_load_dpmodel, [str(final), "--device", "cuda"])
+    stages.serve(final, root, rng)
     row = {"phase": "pipeline", "seconds": time.perf_counter() - t0,
            "pruned_config": {k: pruned_cfg[k] for k in ("encoder_num_heads",
                                                           "encoder_ff_interm_features",
                                                           "encoder_use_attention")},
-           "launches": total}
+           "launches": stages.total}
     emit(row)
-    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    shutil.rmtree(pipe_dir, ignore_errors=True)
+    return row
+
+
+def phase_wavlm_pipeline() -> dict:
+    """The DPWavLM recipe through the port's CLI functions at full width, on
+    the corpus of ``phase_pipeline``: a ``wavlm_base`` teacher checkpoint
+    (random weights), stage-1 distill of the gated WavLM student (3
+    updates), prune (which emits ``encoder_remaining_heads``), final
+    distill of the pruned WavLM student (2 updates), save_final_ckpt,
+    load_dpmodel and the final checkpoint served; default flags (bf16, B =
+    5 x 249,920 samples) and --device cuda, launch counts exact per stage."""
+    pipe_dir = REPO / "build" / "smoke_pipeline_wavlm"
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    root, tsv = write_corpus(pipe_dir, rng)
+    teacher = pt.wavlm_base(device="cpu", generator=torch.Generator().manual_seed(0))
+    teacher_ckpt = pipe_dir / "wavlm_base_teacher.pth"
+    save_checkpoint(teacher_ckpt, teacher.config, teacher.state_dict())
+    spec_t = teacher.spec
+    del teacher
+    L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
+    common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
+              "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
+              "--num_workers", "4", "--device", "cuda"]
+    stages = Stages(spec_t, L, valid_batches=1)
+    exp1, exp2 = pipe_dir / "stage1", pipe_dir / "stage2"
+    stages.run("wavlm distill", cli_distill, common + ["--student_ckpt", str(teacher_ckpt),
+                                                       "--exp_dir", str(exp1),
+                                                       "--max_updates", "3"],
+               student_spec=spec_t, steps=3, valid_passes=1)
+    distilled = exp1 / "ckpts" / "distilled.pth"
+    stages.run("wavlm prune", cli_prune, ["--distilled_ckpt", str(distilled),
+                                          "--original_ckpt", str(teacher_ckpt)])
+    pruned = exp1 / "ckpts" / "pruned_hubert_base.pth"
+    pruned_cfg = load_checkpoint(pruned)["config"]
+    check(all(isinstance(h, list) for h in pruned_cfg["encoder_remaining_heads"])
+          and pruned_cfg["encoder_total_num_heads"] == [12] * 12,
+          f"WavLM prune: {pruned_cfg.get('encoder_remaining_heads')}")
+    stages.run("wavlm final_distill", cli_final_distill,
+               common + ["--student_ckpt", str(pruned), "--exp_dir", str(exp2),
+                         "--max_updates", "2"],
+               student_spec=pt.spec_from_config(**pruned_cfg), steps=2, valid_passes=1)
+    stages.run("wavlm save_final_ckpt", cli_save_final_ckpt,
+               ["--config_path", str(pruned),
+                "--ckpt_after_final_distill", str(exp2 / "ckpts" / "distilled.pth")])
+    final = exp2 / "ckpts" / "pruned_hubert_base.pth"
+    stages.run("wavlm load_dpmodel", cli_load_dpmodel, [str(final), "--device", "cuda"])
+    served = stages.serve(final, root, rng)
+    check(served.is_wavlm, "the final WavLM checkpoint did not serve as WavLM")
+    row = {"phase": "wavlm_pipeline", "seconds": time.perf_counter() - t0,
+           "pruned_config": {k: pruned_cfg[k] for k in ("encoder_remaining_heads",
+                                                          "encoder_ff_interm_features",
+                                                          "encoder_use_attention")},
+           "launches": stages.total}
+    emit(row)
+    shutil.rmtree(pipe_dir, ignore_errors=True)
     return row
 
 
@@ -1087,6 +1478,7 @@ def main() -> int:
     kernels = phase_kernels(base.spec)
     train_kernels = phase_train_kernels(base.spec)
     flash_kernels = phase_flash_kernels()
+    wavlm_kernels = phase_wavlm_kernels(base.spec)
 
     # path 1: HuBERT Base served in bf16 and fp32
     reset_launch_counts()
@@ -1113,15 +1505,37 @@ def main() -> int:
     path_launches["final_distill"] = final_step["launches"]
     path_launches["pipeline"] = phase_pipeline()["launches"]
 
+    # path 4: DPWavLM: WavLM Base and the pruned WavLM student served, the
+    # step checked on both routes, the timed bf16 step, the WavLM recipe
+    reset_launch_counts()
+    wavlm = pt.wavlm_base(device="cuda", generator=torch.Generator().manual_seed(0))
+    phase_slice("wavlm_base", wavlm)
+    del wavlm
+    wavlm_student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1),
+                                      **json.loads(WAVLM_PRUNED_CONFIG.read_text()))
+    phase_slice("wavlm_pruned_r4", wavlm_student)
+    path_launches["wavlm_serve"] = launch_counts()
+    del wavlm_student
+    phase_train_check("wavlm", "wavlm_train_check")
+    path_launches["wavlm_general"] = phase_wavlm_general_check()["launches"]
+    path_launches["wavlm_train"] = phase_train("wavlm")["launches"]
+    path_launches["wavlm_pipeline"] = phase_wavlm_pipeline()["launches"]
+
+    bf16 = torch.bfloat16
     rows = {
-        "packed_attention_fwd": train_kernels[("packed_attention_fwd", "train", torch.bfloat16)],
-        "flash_attention_fwd": flash_kernels[("flash_attention_fwd", "final_distill", torch.bfloat16)],
-        "packed_attention_bwd_dq": train_kernels[("packed_attention_bwd_dq", "train", torch.bfloat16)],
-        "packed_attention_bwd_dkv": train_kernels[("packed_attention_bwd_dkv", "train", torch.bfloat16)],
-        "flash_attention_bwd_dq": flash_kernels[("flash_attention_bwd_dq", "final_distill", torch.bfloat16)],
-        "flash_attention_bwd_dkv": flash_kernels[("flash_attention_bwd_dkv", "final_distill", torch.bfloat16)],
+        "packed_attention_fwd": train_kernels[("packed_attention_fwd", "train", bf16)],
+        "flash_attention_fwd": flash_kernels[("flash_attention_fwd", "final_distill", bf16)],
+        "packed_attention_bwd_dq": train_kernels[("packed_attention_bwd_dq", "train", bf16)],
+        "packed_attention_bwd_dkv": train_kernels[("packed_attention_bwd_dkv", "train", bf16)],
+        "flash_attention_bwd_dq": flash_kernels[("flash_attention_bwd_dq", "final_distill", bf16)],
+        "flash_attention_bwd_dkv": flash_kernels[("flash_attention_bwd_dkv", "final_distill",
+                                                  bf16)],
+        **{name: wavlm_kernels[(name, "train", bf16)] for name in KERNELS
+           if name.startswith("wavlm_")},
     }
-    serve_flash = kernels[("flash_attention_fwd", torch.bfloat16)]
+    serve_rows = {"flash_attention_fwd": kernels[("flash_attention_fwd", bf16)],
+                  "wavlm_attention_fwd": wavlm_kernels[("wavlm_attention_fwd", "serve_batch2",
+                                                        bf16)]}
     line = []
     for name, r in rows.items():
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
@@ -1135,10 +1549,13 @@ def main() -> int:
             "library_ms": r["library_ms"], "dtype": r["dtype"],
             "shape": r.get("shape_BLHD") or r["shape_BHLD"],
         }
-        if name == "flash_attention_fwd":  # its serving row, without dropout
-            entry["serve"] = {k: serve_flash[k] for k in ("ms", "plain_ms", "library_ms",
-                                                          "bound_ms", "max_abs_err", "shape_BLHD")}
+        if name in serve_rows:  # its serving row, without dropout
+            sr = serve_rows[name]
+            entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "max_abs_err")}
+            entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
+    check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})

@@ -12,7 +12,9 @@ Numerics follow the TPU package's component layer:
   * weights are cast to the activation dtype at every call;
   * GELU is the exact (erf) form;
   * attention runs in a hand-written CUDA kernel on the card and in the
-    kernel's plain version on the CPU (see ``attention_route``).
+    kernel's plain version on the CPU (see ``attention_route``); WavLM's
+    attention keeps its gated relative-position bias factored, as a (H, L,
+    L) table and a (B, H, L) gate, through ``ops/wavlm_attention.py``.
 
 Training (the distill step) passes a ``torch.Generator`` for dropout and a
 nested dict of HardConcrete gates, keyed as the TPU package's gate tree
@@ -24,9 +26,11 @@ as in the TPU package's eval path.  LayerDrop is not ported (it only acts in
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +44,7 @@ from ..configs import (
 )
 from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
+from ..ops.wavlm_attention import wavlm_attention_qkv
 
 LN_EPS = 1e-5
 
@@ -304,10 +309,85 @@ class ConvolutionalPositionalEmbedding(nn.Module):
 
 
 def attention_route(L: int, num_heads: int, head_dim: int) -> str:
-    """Which attention kernel a layer takes: the TPU package's dispatch
-    (``packed`` when its packed kernel could run the shape, else ``flash``).
-    On a CPU tensor the chosen kernel's wrapper runs its plain version."""
+    """Which attention kernel a layer without a position bias takes: the
+    TPU package's dispatch (``packed`` when its packed kernel could run the
+    shape, else ``flash``).  On a CPU tensor the chosen kernel's wrapper runs
+    its plain version.  A WavLM layer with the bias takes the ``wavlm``
+    kernels (``ops/wavlm_attention.py``)."""
     return "packed" if packed_num_groups(L, num_heads, head_dim) > 0 else "flash"
+
+
+# ---------------------------------------------------------------------------
+# WavLM relative position bias
+# ---------------------------------------------------------------------------
+
+
+def _relative_positions_bucket_np(
+    seq_len: int, num_buckets: int, max_distance: int
+) -> np.ndarray:
+    """Bucketed relative positions, computed host-side (static given L).
+
+    Bidirectional bucketing per WavLM eq. (5) (reference
+    ``components.py:563-600``): half the buckets for each sign, half of those
+    exact, the rest log-spaced out to ``max_distance``.  A copy of the TPU
+    package's function, float32 log included, so the buckets agree bit for
+    bit.
+    """
+    context = np.arange(seq_len, dtype=np.int64)[:, None]
+    memory = np.arange(seq_len, dtype=np.int64)[None, :]
+    relative = memory - context  # (L, L)
+
+    nb = num_buckets // 2
+    buckets = (relative > 0).astype(np.int64) * nb
+    rel_abs = np.abs(relative)
+
+    max_exact = nb // 2
+    is_small = rel_abs < max_exact
+    # log-spaced buckets for distant positions
+    rel_if_large = max_exact + (
+        np.log(np.maximum(rel_abs, 1).astype(np.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (nb - max_exact)
+    ).astype(np.int64)
+    rel_if_large = np.minimum(rel_if_large, nb - 1)
+    buckets += np.where(is_small, rel_abs, rel_if_large)
+    return buckets.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _bucket_index(seq_len: int, num_buckets: int, max_distance: int, device: str):
+    """The (L, L) bucket ids as an int64 tensor on ``device``, kept across
+    steps (the same L recurs every step of a static-shape loader)."""
+    buckets = _relative_positions_bucket_np(seq_len, num_buckets, max_distance)
+    return torch.from_numpy(buckets.astype(np.int64)).to(device)
+
+
+def compute_wavlm_bias(table: torch.Tensor, spec: AttentionSpec, seq_len: int) -> torch.Tensor:
+    """(total_num_heads, L, L) relative position bias in the table's dtype
+    (fp32), contiguous: the bucket gather of the (num_buckets,
+    total_num_heads) embedding table.  Its gradient, the sum of every
+    layer's bias gradient into the table's rows, is PyTorch's embedding
+    backward."""
+    index = _bucket_index(seq_len, spec.num_buckets, spec.max_distance, str(table.device))
+    return F.embedding(index, table).permute(2, 0, 1).contiguous()
+
+
+class Embedding(nn.Module):
+    """An (n, dim) table with ``weight``, N(0, 1) at init (the default of
+    torch's nn.Embedding)."""
+
+    def __init__(self, n: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=gen)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
 
 
 class SelfAttention(nn.Module):
@@ -315,10 +395,6 @@ class SelfAttention(nn.Module):
 
     def __init__(self, spec: AttentionSpec):
         super().__init__()
-        if spec.is_wavlm:
-            raise NotImplementedError(
-                "WavLM attention is not ported yet (ROADMAP queue 2, the WavLM kernels)"
-            )
         self.spec = spec
         inner = spec.num_heads * spec.head_dim
         self.k_proj = Linear(spec.embed_dim, inner)
@@ -330,25 +406,27 @@ class SelfAttention(nn.Module):
         if spec.prune_layer:
             self.hard_concrete_for_layer = HardConcrete(1, 0.01)
 
-    def forward(self, x, lengths, gates=None, generator=None):
-        """x: (B, L, E); lengths: int32 (B,) valid frames or None; gates:
-        ``{"heads": (H,), "layer": (1,)}`` entries or None; ``generator``
-        turns attention-probability dropout on (in the kernel)."""
-        B, L, _ = x.shape
-        H, D = self.spec.num_heads, self.spec.head_dim
-        scale = D ** -0.5
-        rate = self.spec.dropout if generator is not None else 0.0
-        # one fused (B*L, E) @ (E, 3*H*D) product; q, k, v stay views of it
+    def _qkv(self, x):
+        """One fused (B*L, E) @ (E, 3*H*D) product; q, k, v stay views of
+        it."""
         w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
         b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
-        qkv = F.linear(x, w.to(x.dtype), b.to(x.dtype))
+        return F.linear(x, w.to(x.dtype), b.to(x.dtype))
+
+    def _dropout_seed(self, x, generator):
+        """(rate, seed): with dropout, one int32 on the device that the
+        kernels read there."""
+        rate = self.spec.dropout if generator is not None else 0.0
         seed = None
-        if rate > 0.0:  # one int32 on the device: the kernels read it there
+        if rate > 0.0:
             seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
                                  device=x.device).to(torch.int32)
-        attend = (packed_attention_qkv if attention_route(L, H, D) == "packed"
-                  else flash_attention_qkv)
-        out = attend(qkv, lengths, num_heads=H, scale=scale, dropout_rate=rate, seed=seed)
+        return rate, seed
+
+    def _output(self, out, gates):
+        """Head gates, the output projection and the layer gate."""
+        B, L, _ = out.shape
+        H, D = self.spec.num_heads, self.spec.head_dim
         head_gate = _gate(gates, "heads")
         if head_gate is not None:
             out = (out.view(B, L, H, D) * head_gate.to(out.dtype)[:, None]).view(B, L, H * D)
@@ -357,6 +435,91 @@ class SelfAttention(nn.Module):
         if layer_gate is not None:
             out = out * layer_gate.to(out.dtype)
         return out
+
+    def forward(self, x, lengths, gates=None, generator=None):
+        """x: (B, L, E); lengths: int32 (B,) valid frames or None; gates:
+        ``{"heads": (H,), "layer": (1,)}`` entries or None; ``generator``
+        turns attention-probability dropout on (in the kernel)."""
+        L = x.shape[1]
+        H, D = self.spec.num_heads, self.spec.head_dim
+        qkv = self._qkv(x)
+        rate, seed = self._dropout_seed(x, generator)
+        attend = (packed_attention_qkv if attention_route(L, H, D) == "packed"
+                  else flash_attention_qkv)
+        out = attend(qkv, lengths, num_heads=H, scale=D ** -0.5, dropout_rate=rate, seed=seed)
+        return self._output(out, gates)
+
+
+class WavLMSelfAttention(SelfAttention):
+    """WavLM's self-attention: the attention of ``SelfAttention`` with a
+    relative-position bias in the scores, gated per query row by a GRU-style
+    gate of the layer's input (reference ``components.py:486-693``).
+
+    Layer 0 holds the (num_buckets, total_num_heads) table
+    ``rel_attn_embed`` and computes the (total_num_heads, L, L) bias, which
+    every later layer receives; each layer holds ``gru_rel_pos_linear``
+    (embed/total_num_heads -> 8) and ``gru_rel_pos_const`` (1, TH, 1, 1).
+    A pruned layer keeps the bias and gate rows of its ``remaining_heads``.
+    Without a bias (layer 0's attention pruned away) the layer is plain
+    attention."""
+
+    def __init__(self, spec: AttentionSpec):
+        super().__init__(spec)
+        TH = spec.total_num_heads
+        if spec.has_relative_attention_bias:
+            self.rel_attn_embed = Embedding(spec.num_buckets, TH)
+        if spec.gru_rel_pos:
+            self.gru_rel_pos_linear = Linear(spec.embed_dim // TH, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.empty(1, TH, 1, 1))
+        # the selected heads' rows of the bias and gate (None: all of them)
+        keep = spec.remaining_heads
+        if keep is not None and len(keep) != TH:
+            self.register_buffer("_keep_heads", torch.tensor(keep, dtype=torch.int64),
+                                 persistent=False)
+        else:
+            self._keep_heads = None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        if self.spec.gru_rel_pos:
+            with torch.no_grad():
+                self.gru_rel_pos_const.fill_(1.0)
+
+    def _gate_a_1(self, x):
+        """(B, TH, L) fp32 gate from the pre-projection input, split into
+        TH chunks: sigmoid of the 8 outputs summed in pairs of four, then
+        gate_a * (gate_b * const - 1) + 2 (``components.py:461-473`` of the
+        TPU package)."""
+        B, L, E = x.shape
+        TH = self.spec.total_num_heads
+        query = x.reshape(B, L, TH, E // TH).transpose(1, 2)
+        raw = self.gru_rel_pos_linear(query)  # (B, TH, L, 8) in x's dtype
+        g = torch.sigmoid(raw.reshape(B, TH, L, 2, 4).sum(-1).float())
+        const = self.gru_rel_pos_const.float().view(1, TH, 1)
+        return g[..., 0] * (g[..., 1] * const - 1.0) + 2.0
+
+    def forward(self, x, lengths, position_bias=None, gates=None, generator=None):
+        """As ``SelfAttention.forward``, with the (TH, L, L) ``position_bias``
+        of an earlier layer (None in layer 0, which computes it) ->
+        (output, position_bias)."""
+        spec = self.spec
+        B, L, _ = x.shape
+        if spec.has_relative_attention_bias and position_bias is None:
+            position_bias = compute_wavlm_bias(self.rel_attn_embed.weight, spec, L)
+        if position_bias is None:
+            return super().forward(x, lengths, gates, generator), None
+        if spec.gru_rel_pos:
+            gate = self._gate_a_1(x)
+        else:
+            gate = torch.ones((B, spec.total_num_heads, L), device=x.device)
+        bias = position_bias
+        if self._keep_heads is not None:
+            bias, gate = bias[self._keep_heads], gate[:, self._keep_heads]
+        H, D = spec.num_heads, spec.head_dim
+        qkv = self._qkv(x)
+        rate, seed = self._dropout_seed(x, generator)
+        out = wavlm_attention_qkv(qkv, bias, gate, lengths, num_heads=H, scale=D ** -0.5,
+                                  dropout_rate=rate, seed=seed)
+        return self._output(out, gates), position_bias
 
 
 class FeedForward(nn.Module):
@@ -397,19 +560,28 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.layer_norm_first = spec.layer_norm_first
         self.dropout = spec.dropout
-        self.attention = SelfAttention(spec.attention) if spec.attention else None
+        self.attention = None
+        if spec.attention is not None:
+            self.attention = (WavLMSelfAttention(spec.attention) if spec.attention.is_wavlm
+                              else SelfAttention(spec.attention))
         self.layer_norm = Norm(spec.embed_dim)
         self.feed_forward = FeedForward(spec.feed_forward) if spec.feed_forward else None
         self.final_layer_norm = Norm(spec.embed_dim)
 
-    def forward(self, x, lengths, gates=None, generator=None):
+    def forward(self, x, lengths, gates=None, generator=None, position_bias=None):
+        """-> (output, position_bias): WavLM's bias passes through every
+        layer (computed in layer 0); None for wav2vec 2.0 / HuBERT."""
         att_gates = _gate(gates, "attention")
         ff_gates = _gate(gates, "feed_forward")
         if self.attention is not None:
             residual = x
             if self.layer_norm_first:
                 x = self.layer_norm(x)
-            x = self.attention(x, lengths, att_gates, generator)
+            if isinstance(self.attention, WavLMSelfAttention):
+                x, position_bias = self.attention(x, lengths, position_bias, att_gates,
+                                                  generator)
+            else:
+                x = self.attention(x, lengths, att_gates, generator)
             x = residual + _dropout(x, self.dropout, generator)
         if self.layer_norm_first:
             if self.feed_forward is not None:
@@ -419,7 +591,7 @@ class EncoderLayer(nn.Module):
             if self.feed_forward is not None:
                 x = x + self.feed_forward(x, ff_gates, generator)
             x = self.final_layer_norm(x)
-        return x
+        return x, position_bias
 
 
 class Transformer(nn.Module):
@@ -442,11 +614,15 @@ class Transformer(nn.Module):
     def get_intermediate_outputs(self, x, lengths, num_layers: Optional[int] = None,
                                  gates=None, generator=None):
         """Every layer's hidden state (no final LayerNorm), never applying
-        LayerDrop: distillation sees all layers, as in the TPU package."""
+        LayerDrop: distillation sees all layers, as in the TPU package.
+        WavLM's position bias, computed in layer 0, is threaded through, so
+        every layer's bias gradient flows back into layer 0's table."""
         x = self._preprocess(x, generator)
         outs: List[torch.Tensor] = []
+        position_bias = None
         for i, layer in enumerate(self.layers):
-            x = layer(x, lengths, _gate(gates, "layers", str(i)), generator)
+            x, position_bias = layer(x, lengths, _gate(gates, "layers", str(i)), generator,
+                                     position_bias)
             outs.append(x)
             if num_layers is not None and len(outs) >= num_layers:
                 break
@@ -454,8 +630,9 @@ class Transformer(nn.Module):
 
     def forward(self, x, lengths):
         x = self._preprocess(x)
+        position_bias = None
         for layer in self.layers:
-            x = layer(x, lengths)
+            x, position_bias = layer(x, lengths, position_bias=position_bias)
         if not self.layer_norm_first:
             x = self.layer_norm(x)
         return x

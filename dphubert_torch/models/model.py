@@ -19,12 +19,6 @@ from ..configs import ModelSpec, config_from_spec, spec_from_config
 from . import components
 from .gates import has_gates
 
-_WAVLM_TODO = (
-    "WavLM is not ported yet: its seven attention kernels are queued in "
-    "ROADMAP.md (queue 2, the WavLM kernels)"
-)
-
-
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises if it asks for CUDA and there is
     none (the port does not carry on silently on the CPU)."""
@@ -37,7 +31,7 @@ def resolve_device(device) -> torch.device:
 
 
 class Wav2Vec2Model(nn.Module):
-    """wav2vec 2.0 / HuBERT with the portable state-dict layout.
+    """wav2vec 2.0 / HuBERT / WavLM with the portable state-dict layout.
 
     Parameters are created uninitialised; the factories initialise them
     (``reset_parameters``) and ``load_model`` loads them from a checkpoint.
@@ -45,8 +39,6 @@ class Wav2Vec2Model(nn.Module):
 
     def __init__(self, spec: ModelSpec, config_override: Optional[dict] = None):
         super().__init__()
-        if spec.is_wavlm:
-            raise NotImplementedError(_WAVLM_TODO)
         self.spec = spec
         # surgery emits configs that keep what a spec cannot represent (the
         # recorded FFN width of a dead layer); keep the dict for checkpoints
@@ -137,10 +129,9 @@ def _build(spec: ModelSpec, device, generator: Optional[torch.Generator]) -> Wav
 def wav2vec2_model(
     *, device="cuda", generator: Optional[torch.Generator] = None, **configs
 ) -> Wav2Vec2Model:
-    """Build a randomly initialised model from a portable config dict.
-    WavLM configs (with ``encoder_remaining_heads``) raise for now."""
-    if "encoder_remaining_heads" in configs:
-        raise NotImplementedError(_WAVLM_TODO)
+    """Build a randomly initialised model from a portable config dict
+    (wav2vec 2.0 / HuBERT, or WavLM: the ``encoder_remaining_heads`` key
+    selects it, as in the reference's ``model.py:172-178``)."""
     return _build(spec_from_config(**configs), device, generator)
 
 
@@ -151,7 +142,14 @@ def wav2vec2_model_original(**configs) -> Wav2Vec2Model:
 
 
 def wavlm_model(**configs) -> Wav2Vec2Model:
-    raise NotImplementedError(_WAVLM_TODO)
+    """A WavLM model; named presets pass uniform head counts
+    (``encoder_num_heads``), which expand to index lists."""
+    if "encoder_remaining_heads" not in configs:
+        n = configs["encoder_num_layers"]
+        heads = configs.pop("encoder_num_heads")
+        configs["encoder_total_num_heads"] = [heads] * n
+        configs["encoder_remaining_heads"] = [list(range(heads)) for _ in range(n)]
+    return wav2vec2_model(**configs)
 
 
 def _base_like(
@@ -253,9 +251,52 @@ def hubert_xlarge(**kw) -> Wav2Vec2Model:
     )
 
 
+def _wavlm_like(*, extractor_mode: str, embed_dim: int, num_layers: int, num_heads: int,
+                ff_interm: int, ff_interm_dropout: float, layer_norm_first: bool,
+                normalize_waveform: bool, aux_num_out: Optional[int] = None,
+                device="cuda", generator: Optional[torch.Generator] = None,
+                **kw) -> Wav2Vec2Model:
+    """The TPU package's WavLM presets: the dropout rates may be overridden
+    through ``kw``; its other keys (prune flags) are ignored there and
+    here."""
+    n = num_layers
+    return wavlm_model(
+        device=device,
+        generator=generator,
+        extractor_mode=extractor_mode,
+        extractor_conv_layer_config=None,
+        extractor_conv_bias=False,
+        encoder_embed_dim=embed_dim,
+        encoder_projection_dropout=kw.get("encoder_projection_dropout", 0.1),
+        encoder_pos_conv_kernel=128,
+        encoder_pos_conv_groups=16,
+        encoder_num_layers=n,
+        encoder_use_attention=[True] * n,
+        encoder_use_feed_forward=[True] * n,
+        encoder_num_heads=num_heads,
+        encoder_num_buckets=320,
+        encoder_max_distance=800,
+        encoder_attention_dropout=kw.get("encoder_attention_dropout", 0.1),
+        encoder_ff_interm_features=[ff_interm] * n,
+        encoder_ff_interm_dropout=kw.get("encoder_ff_interm_dropout", ff_interm_dropout),
+        encoder_dropout=kw.get("encoder_dropout", 0.1),
+        encoder_layer_norm_first=layer_norm_first,
+        encoder_layer_drop=kw.get("encoder_layer_drop", 0.1),
+        aux_num_out=aux_num_out,
+        normalize_waveform=normalize_waveform,
+    )
+
+
 def wavlm_base(**kw) -> Wav2Vec2Model:
-    raise NotImplementedError(_WAVLM_TODO)
+    """WavLM Base: 12 layers, 768 wide, 12 heads x 64, FFN 3072, 320
+    buckets, max distance 800."""
+    return _wavlm_like(extractor_mode="group_norm", embed_dim=768, num_layers=12,
+                       num_heads=12, ff_interm=3072, ff_interm_dropout=0.1,
+                       layer_norm_first=False, normalize_waveform=False, **kw)
 
 
 def wavlm_large(**kw) -> Wav2Vec2Model:
-    raise NotImplementedError(_WAVLM_TODO)
+    """WavLM Large: 24 layers, 1024 wide, 16 heads x 64, FFN 4096."""
+    return _wavlm_like(extractor_mode="layer_norm", embed_dim=1024, num_layers=24,
+                       num_heads=16, ff_interm=4096, ff_interm_dropout=0.0,
+                       layer_norm_first=True, normalize_waveform=True, **kw)

@@ -1,7 +1,8 @@
 """What the attention kernels and their plain versions share: the mask
-constant, the dropout hash's plain version and threshold, the plain softmax
-and backward on the (B, H, L, D) layout, and the checks a wrapper makes
-before it hands pointers to a kernel."""
+constant, the dropout hash's plain version and threshold, the plain scores
+(with WavLM's gated bias where given), softmax and backward on the (B, H, L,
+D) layout, and the checks a wrapper makes before it hands pointers to a
+kernel."""
 
 from __future__ import annotations
 
@@ -92,18 +93,30 @@ def keep_mask(seed: torch.Tensor, dropout_rate: float, B: int, H: int, L: int, d
                              device=device)
 
 
-def softmax_parts(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tensor],
-                  scale: float):
-    """Scores of (B, H, L, D) q and k in ``acc_dtype``, key columns at or
-    past ``lengths[b]`` masked with NEG_INF as the kernels mask them: the
-    unnormalised p = exp(s - m), the (B, H, L, 1) row max m, sum l and
-    1/l (taken as 1 where l is 0)."""
+def scores(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tensor], scale: float,
+           bias: Optional[torch.Tensor] = None, gate: Optional[torch.Tensor] = None):
+    """(B, H, L, L) scores of (B, H, L, D) q and k in ``acc_dtype``:
+    scale * q k^T, plus gate[b, h, i] * bias[h, i, j] where a WavLM bias is
+    given ((H, L, L) bias, (B, H, L) gate), with the key columns at or past
+    ``lengths[b]`` masked with NEG_INF as the kernels mask them."""
     acc = acc_dtype(q.dtype)
     L = q.shape[2]
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + gate.to(acc)[..., None] * bias.to(acc)[None]
     if lengths is not None:
         valid = torch.arange(L, device=q.device)[None, :] < lengths.to(q.device)[:, None]
         s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    return s
+
+
+def softmax_parts(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tensor],
+                  scale: float, bias: Optional[torch.Tensor] = None,
+                  gate: Optional[torch.Tensor] = None):
+    """The ``scores`` softmax as the kernels take it: the unnormalised p =
+    exp(s - m), the (B, H, L, 1) row max m, sum l and 1/l (taken as 1 where
+    l is 0)."""
+    s = scores(q, k, lengths, scale, bias, gate)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -112,15 +125,18 @@ def softmax_parts(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tens
 
 
 def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate: float,
-                        seed: Optional[torch.Tensor]):
+                        seed: Optional[torch.Tensor], bias: Optional[torch.Tensor] = None,
+                        gate: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of (B, H, L, D) tensors in ``acc_dtype``, by the formulas
     of the TPU backward kernels (flash ``_bwd_dq_kernel`` /
-    ``_bwd_dkv_kernel``, packed ``_heads_loop_bwd_dq`` / ``_dkv``): p
-    recomputed and normalised; dp = dout v^T, dropped and scaled; di =
-    rowsum(out * dout); ds = p (dp - di) scale; dq = ds k, dk = ds^T q,
-    dv = p~^T dout with p~ the dropped, scaled p."""
+    ``_bwd_dkv_kernel``, packed ``_heads_loop_bwd_dq`` / ``_dkv``, WavLM
+    ``_bwd_*_kernel``): p recomputed and normalised; dp = dout v^T, dropped
+    and scaled; di = rowsum(out * dout); ds = p (dp - di); dq = scale ds k,
+    dk = scale ds^T q, dv = p~^T dout with p~ the dropped, scaled p.  With a
+    WavLM bias also (dbias, dgate): dbias[h, i, j] = sum_b gate ds and
+    dgate[b, h, i] = sum_j ds bias, from the unscaled ds."""
     acc = acc_dtype(q.dtype)
-    p, _, _, l_inv = softmax_parts(q, k, lengths, scale)
+    p, _, _, l_inv = softmax_parts(q, k, lengths, scale, bias, gate)
     p = p * l_inv
     do = dout.to(acc)
     dp = torch.matmul(do, v.to(acc).transpose(-1, -2))
@@ -133,11 +149,15 @@ def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate:
     else:
         p_used = p
     di = (out.to(acc) * do).sum(dim=-1, keepdim=True)
-    ds = p * (dp - di) * scale
-    dq = torch.matmul(ds, k.to(acc))
-    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc))
+    ds = p * (dp - di)
+    dq = torch.matmul(ds * scale, k.to(acc))
+    dk = torch.matmul((ds * scale).transpose(-1, -2), q.to(acc))
     dv = torch.matmul(p_used.transpose(-1, -2), do)
-    return dq, dk, dv
+    if bias is None:
+        return dq, dk, dv
+    dbias = (gate.to(acc)[..., None] * ds).sum(dim=0)
+    dgate = (ds * bias.to(acc)[None]).sum(dim=-1)
+    return dq, dk, dv, dbias, dgate
 
 
 def check_kernel_inputs(
@@ -199,8 +219,8 @@ def forward_only(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} is forward-only; the differentiable forms are "
-            "PackedAttentionFn (ops/packed_attention.py) and FlashAttentionFn "
-            "(ops/flash_attention.py)"
+            "PackedAttentionFn (ops/packed_attention.py), FlashAttentionFn "
+            "(ops/flash_attention.py) and WavLMAttentionFn (ops/wavlm_attention.py)"
         )
 
 

@@ -40,6 +40,19 @@ from dphubert_torch.ops.packed_attention import (
     packed_attention_reference,
     packed_num_groups,
 )
+from dphubert_torch.ops.wavlm_attention import (
+    wavlm_attention,
+    wavlm_attention_bwd_dbias,
+    wavlm_attention_bwd_dkv,
+    wavlm_attention_bwd_dkv_general,
+    wavlm_attention_bwd_dq,
+    wavlm_attention_bwd_fused,
+    wavlm_attention_bwd_reference,
+    wavlm_attention_fwd,
+    wavlm_attention_fwd_general,
+    wavlm_attention_qkv,
+    wavlm_attention_reference,
+)
 
 
 @pytest.fixture
@@ -562,3 +575,145 @@ def test_flash_backward_kernels_match_plain_versions_on_card(dtype, rel, H, leng
     for name, got, w in zip("qkv", g.split(H * D, dim=-1), want):
         close(heads(got), w, f"d{name}")
     assert torch.equal(g, grad()[1])
+
+
+@pytest.mark.parametrize("block_kv", [None, 64])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_wavlm_dropout_mask_read_out_of_the_forward(device, block_kv):
+    """The WavLM forward's dropout mask, bit for bit the plain mask, read
+    out as in ``test_dropout_mask_read_out_of_the_forward``: with q = k = 0
+    and a zero bias (the gate then scales nothing) every key gets the same
+    weight.  On the card that is the device hash inside
+    ``wavlm_attention_fwd`` (block_kv None, the single route) and
+    ``wavlm_attention_fwd_general`` (block_kv 64: two KV blocks of the
+    padded 128).  The head index is the index in the tensors' heads (the
+    selected heads of a pruned layer).  L = 130 spans three 64-row tiles."""
+    if device == "cuda":
+        _card()
+    B, H, L, D, rate = 2, 7, 130, 64, 0.1
+    keep = 1.0 - rate
+    j = torch.arange(L, device=device)
+    v1 = torch.zeros(L, D, device=device)
+    v1[j, j % D] = 2.0 ** (j // D).float()
+    v = v1.expand(B, H, L, D).contiguous()
+    qk = torch.zeros_like(v)
+    bias = torch.zeros(H, L, L, device=device)
+    gate = torch.rand(B, H, L, device=device) + 1.0
+    b = torch.arange(B, device=device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device).view(1, H, 1, 1)
+    counts = (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches)
+    for seed in (-123456789, 2**31 - 1, -2**31):
+        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
+        with torch.no_grad():
+            out, _, l = wavlm_attention(qk, qk, v, bias, gate, None, dropout_rate=rate,
+                                        seed=t_seed, block_kv=block_kv)
+        assert torch.equal(l, torch.full_like(l, float(L)))  # l is the undropped sum
+        code = torch.round(out.double() * L * keep).long()
+        got = (code[..., j % D] >> (j // D)) & 1
+        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
+        assert torch.equal(got.bool(), want)
+    n = 3 if device == "cuda" else 0
+    single = block_kv is None
+    assert (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches) == (
+        counts[0] + n * single, counts[1] + n * (not single))
+
+
+WAVLM_KERNELS = (wavlm_attention_fwd, wavlm_attention_bwd_fused, wavlm_attention_bwd_dkv,
+                 wavlm_attention_fwd_general, wavlm_attention_bwd_dq, wavlm_attention_bwd_dbias,
+                 wavlm_attention_bwd_dkv_general)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("block_kv", [None, 128])
+@pytest.mark.parametrize("H,lengths,rate", [(12, None, 0.1), (7, [333, 200, 1], 0.0),
+                                            (7, [333, 64, 130], 0.1)])
+def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_kv, H, lengths,
+                                                             rate):
+    """The WavLM forward with dropout and its route's backward kernels
+    (single: fused dq/dgate/dbias and dkv; general, block_kv 128: dq/dgate,
+    dbias and dkv) against their plain versions, through WavLMAttentionFn
+    on (B, H, L, D) views of a fused QKV tensor with fp32 bias and gate
+    needing gradients, with the launch counts.  A second backward is
+    bit-identical: no float atomics, dbias summed over the batch in one
+    block.  Bound: max abs error <= rel * max |plain| for out, dq, dk, dv,
+    dgate and dbias."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, L, D = 3, 333, 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(B, L, H * D, device="cuda", generator=gen).to(dtype)
+    bias = torch.randn(H, L, L, device="cuda", generator=gen)
+    gate = 1.0 + 2.0 * torch.rand(B, H, L, device="cuda", generator=gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([-31337], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=seed)
+
+    def heads(t):
+        return t.view(B, L, H, D).transpose(1, 2)
+
+    def close(got, want, what):
+        err = (got.float() - want.float()).abs().max().item()
+        bound = rel * want.float().abs().max().item()
+        assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+    q, k, v = (heads(t) for t in qkv.split(H * D, dim=-1))
+    with torch.no_grad():
+        out, m, l = wavlm_attention(q, k, v, bias, gate, lens, block_kv=block_kv, **kw)
+        want_out, want_m, want_l = wavlm_attention_reference(q, k, v, bias, gate, lens, **kw)
+        close(out, want_out, "out")
+        torch.testing.assert_close(m, want_m, atol=1e-4, rtol=0)
+        torch.testing.assert_close(l, want_l, atol=0, rtol=1e-4)
+    before = [f.launches for f in WAVLM_KERNELS]
+
+    def grad():
+        x = qkv.clone().requires_grad_()
+        bg, gg = bias.clone().requires_grad_(), gate.clone().requires_grad_()
+        y = wavlm_attention_qkv(x, bg, gg, lens, num_heads=H, block_kv=block_kv, **kw)
+        y.backward(dout)
+        return y.detach(), x.grad, bg.grad, gg.grad
+
+    y, gx, gb, gg = grad()
+    grew = [f.launches - n for f, n in zip(WAVLM_KERNELS, before)]
+    assert grew == ([1, 1, 1, 0, 0, 0, 0] if block_kv is None else [0, 0, 0, 1, 1, 1, 1])
+    torch.testing.assert_close(y, out.transpose(1, 2).reshape(B, L, H * D), atol=0, rtol=0)
+    want = wavlm_attention_bwd_reference(q, k, v, bias, gate, out, heads(dout).contiguous(),
+                                         lens, **kw)
+    for name, got, w in zip(("dq", "dk", "dv"), gx.split(H * D, dim=-1), want):
+        close(heads(got), w, name)
+    close(gb, want[3], "dbias")
+    close(gg, want[4], "dgate")
+    again = grad()
+    for name, a, b2 in zip(("dqkv", "dbias", "dgate"), (gx, gb, gg), again[1:]):
+        assert torch.equal(a, b2), f"{name}: a second backward differs"
+
+
+@pytest.mark.gpu
+def test_wavlm_general_entries_equal_single_entries_on_card():
+    """The general entries compute the single entries' function: fp32, the
+    same inputs, within 1e-5 relative (the blocks' order changes nothing
+    of a sum but dbias, summed over the batch in another block)."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, H, L, D = 4, 5, 300, 64
+    q, k, v, dout = (torch.randn(B, H, L, D, device="cuda", generator=gen) for _ in range(4))
+    bias = torch.randn(H, L, L, device="cuda", generator=gen)
+    gate = 1.0 + torch.rand(B, H, L, device="cuda", generator=gen)
+    lens = torch.tensor([300, 250, 17, 64], dtype=torch.int32, device="cuda")
+    seed = torch.tensor([5], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=0.1, seed=seed)
+    args = (q, k, v, bias, gate)
+    with torch.no_grad():
+        out, m, l = wavlm_attention_fwd(*args, lens, **kw)
+        out_g, m_g, l_g = wavlm_attention_fwd_general(*args, lens, **kw)
+        dq, dgate, dbias, di = wavlm_attention_bwd_fused(*args, out, dout, m, l, lens, **kw)
+        dk, dv = wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lens, **kw)
+        dq_g, dgate_g, di_g = wavlm_attention_bwd_dq(*args, out, dout, m, l, lens, **kw)
+        dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, lens, **kw)
+        dk_g, dv_g = wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g, lens, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in (("out", out, out_g), ("m", m, m_g), ("l", l, l_g), ("dq", dq, dq_g),
+                       ("dgate", dgate, dgate_g), ("dbias", dbias, dbias_g), ("di", di, di_g),
+                       ("dk", dk, dk_g), ("dv", dv, dv_g)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item(), f"{name}: {err}"

@@ -109,10 +109,11 @@ def test_no_file_names_jax():
 
 
 def test_wavlm_and_training_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.wavlm_base(device="cpu")
+    # WavLM is ported: the preset builds, and the ``encoder_remaining_heads``
+    # key selects the WavLM architecture, which then needs its own keys
+    assert pt.wavlm_base(device="cpu").spec.is_wavlm
     wavlm_cfg = dict(CONFIGS["tiny_post_norm"], encoder_remaining_heads=[[0]] * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="encoder_total_num_heads"):
         pt.wav2vec2_model(device="cpu", **wavlm_cfg)
     model = pt.wav2vec2_model(device="cpu", **CONFIGS["tiny_post_norm"])
     # forward(training=True) needs LayerDrop, which is not ported; the

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's distill step on one card.
 
-    python3 tools/profile_torch_step.py [--steps 2] [--out PATH]
+    python3 tools/profile_torch_step.py [--model wavlm_base] [--steps 2] [--out PATH]
 
-Builds the step that ``chip_smoke.py`` drives (teacher ``hubert_base``,
-student ``hubert_base`` with all five prune flags, ``DistillConfig``
-defaults in bf16, B = 16 clips of 15 s on the card, dropout on, random
-weights from seeds), warms it for two steps, then runs ``--steps`` steps
-under ``torch.profiler`` and prints one JSON object: the wall time of a
+Builds the step that ``chip_smoke.py`` drives (teacher ``hubert_base``, or
+``wavlm_base`` for the DPWavLM step, the student its config with all five
+prune flags, ``DistillConfig`` defaults in bf16, B = 16 clips of 15 s on
+the card, dropout on, random weights from seeds), warms it for two steps,
+then runs ``--steps`` steps under ``torch.profiler`` and prints one JSON object: the wall time of a
 step, the card's busy time in it (the union of the kernels' intervals), and
 the device time of each kernel family and of the top kernels by name.  The
 JSON also goes to ``--out`` (default ``build/profile_torch_step.json``).
@@ -43,7 +43,7 @@ PRUNE_FLAGS = dict(
 )
 # kernel family by a substring of the kernel's name, first match wins
 FAMILIES = (
-    ("attention (this repo's kernels)", ("attention_fwd_kernel", "attention_bwd_")),
+    ("attention (this repo's kernels)", ("attention_fwd_kernel", "attention_bwd_", "wavlm_")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
     ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("random numbers", ("distribution", "philox", "random", "bernoulli")),
@@ -74,6 +74,7 @@ def union_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("hubert_base", "wavlm_base"), default="hubert_base")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_torch_step.json"))
     args = ap.parse_args()
@@ -82,7 +83,7 @@ def main() -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    teacher = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
+    teacher = getattr(pt, args.model)(device="cuda", generator=torch.Generator().manual_seed(0))
     student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1),
                                 **dict(teacher.config, **PRUNE_FLAGS))
     cfg = DistillConfig(compute_dtype="bfloat16")
@@ -115,7 +116,8 @@ def main() -> int:
     kernel_ms = sum(by_family.values()) / 1e3 / args.steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
-        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "steps": args.steps,
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "model": args.model,
+        "steps": args.steps,
         "batch": [16, 240000], "dtype": "bfloat16",
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
