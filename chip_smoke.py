@@ -36,7 +36,10 @@ full width with random weights from seeds:
 Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
 the card at the shapes its path gives it, timed beside its bound and a
-library call, and
+library call (the backward rows beside two: the library's backward without
+and with dropout), and the packed and flash backward entries give up their
+dropout mask bit for bit through both bodies (bf16 on the tensor cores,
+fp32 on the CUDA cores; the rows and the kernels line name the body), and
 each path is checked to have gone through its kernels (launch counts, set
 to 0 just before the path and read just after, exactly what the routing
 rule predicts).  Each phase prints JSON lines; any failure raises and the
@@ -73,6 +76,8 @@ from dphubert_torch.models.components import attention_route, output_lengths
 from dphubert_torch.models.gates import gate_paths
 from dphubert_torch.models.hardconcrete import EPS
 from dphubert_torch.ops import _build
+from dphubert_torch.ops.attention_common import backward_body
+from dphubert_torch.ops.mask_readout import backward_mask_readout
 from dphubert_torch.cli import distill as cli_distill
 from dphubert_torch.cli import final_distill as cli_final_distill
 from dphubert_torch.cli import load_dpmodel as cli_load_dpmodel
@@ -277,10 +282,20 @@ def dtype_name(dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
+# the tensor-core backward bodies (bf16, D = 64): two resident bf16 tiles,
+# a two-stage ring of two tiles, m, l and di of 64 rows (one set in dq, one a
+# stage in dkv), 1024 bytes to align the base (csrc/attention_bwd_wgmma.cuh)
+WGMMA_SMEM_BYTES = {"attention_bwd_dq_wgmma_kernel": 6 * 8192 + 768 + 1024,
+                    "attention_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 768 + 1024}
+
+
 def _smem_bytes(kernel: str, d: int) -> int:
-    """Dynamic shared memory of an instantiation (all fp32 tiles); for the
-    WavLM dq side without its dbias strip, which adds 128 bytes per 32-row x
-    column (ceil64(L) + 8 columns in the fused entry, 72 in the dbias one)."""
+    """Dynamic shared memory of an instantiation (all fp32 tiles but the
+    tensor-core bodies'); for the WavLM dq side without its dbias strip,
+    which adds 128 bytes per 32-row x column (ceil64(L) + 8 columns in the
+    fused entry, 72 in the dbias one)."""
+    if kernel in WGMMA_SMEM_BYTES:
+        return WGMMA_SMEM_BYTES[kernel]
     tile = 64 * (d + 1)
     return 4 * {
         "attention_fwd_kernel": 2 * tile + 64 * d + 64 * 65,
@@ -293,24 +308,31 @@ def _smem_bytes(kernel: str, d: int) -> int:
 
 
 def _ptxas(report: str):
-    """(kernel, dtype, head_dim, registers, spill bytes) per instantiation;
-    the WavLM dq-side body also names its (dq, dbias) switches."""
+    """(kernel, body, dtype, head_dim, registers, spill bytes) per
+    instantiation; the WavLM dq-side body also names its (dq, dbias)
+    switches.  The tensor-core bodies are not templates: bf16 at D = 64."""
     rows = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"(attention_fwd_kernel|attention_bwd_dq_kernel|"
                          r"attention_bwd_dkv_kernel|wavlm_fwd_kernel|wavlm_dkv_kernel|"
                          r"wavlm_bwd_q_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
                          block)
+        wgmma = re.search(r"(attention_bwd_dq_wgmma_kernel|attention_bwd_dkv_wgmma_kernel)",
+                          block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-        kernel, d = name.group(1), int(name.group(3))
+        if wgmma is not None:
+            kernel, d, dtype = wgmma.group(1), 64, "bfloat16"
+        else:
+            kernel, d = name.group(1), int(name.group(3))
+            dtype = "float32" if name.group(2) == "f" else "bfloat16"
         row = {
-            "kernel": kernel, "dtype": "float32" if name.group(2) == "f" else "bfloat16",
-            "head_dim": d, "registers": int(regs.group(1)),
+            "kernel": kernel, "body": "wgmma" if wgmma is not None else "fma",
+            "dtype": dtype, "head_dim": d, "registers": int(regs.group(1)),
             "spill_stores_bytes": int(spills.group(1)), "spill_loads_bytes": int(spills.group(2)),
             "dynamic_smem_bytes": _smem_bytes(kernel, d),
         }
-        if name.group(4) is not None:
+        if name is not None and name.group(4) is not None:
             row["dq"], row["dbias"] = name.group(4) == "1", name.group(5) == "1"
         rows.append(row)
     return rows
@@ -330,10 +352,19 @@ def phase_card() -> str:
     _build.build([name for name, _ in SOURCES])
     seconds = time.perf_counter() - t0
     for name, count in SOURCES:
-        rows = _ptxas(_build.build_reports[name]["ptxas"])
+        report = _build.build_reports[name]["ptxas"]
+        rows = _ptxas(report)
         check(len(rows) == count, f"{name}: expected {count} instantiations, got {len(rows)}")
+        for row in rows:
+            if row["body"] == "wgmma":
+                check(row["spill_stores_bytes"] == row["spill_loads_bytes"] == 0,
+                      f"{row['kernel']} spills: {row}")
+        # ptxas names the wgmma it serializes ("Potential Performance Loss")
+        warnings = [line.strip() for line in report.splitlines() if "wgmma" in line.lower()
+                    and "Compiling entry" not in line and "Function properties" not in line]
         emit({"phase": "build", "source": f"dphubert_torch/csrc/{name}.cu",
-              "seconds": _build.build_reports[name]["seconds"], "ptxas": rows})
+              "seconds": _build.build_reports[name]["seconds"], "ptxas": rows,
+              "wgmma_warnings": warnings})
     emit({"phase": "build", "wall_seconds_all": seconds})
     return smi
 
@@ -366,21 +397,95 @@ def attention_bound_ms(B, L, H, D, lengths, dtype, extra_out_bytes=0):
     return _bound(flops, nbytes, dtype)
 
 
+def backward_flops(kind, B, L, H, D, lengths) -> float:
+    """dq: 6*D operations per (query, valid key, head) (S, dP, dQ); dkv:
+    8*D (S, dP, dV, dK)."""
+    return (6.0 if kind == "dq" else 8.0) * H * D * L * sum(_valid_keys(lengths, B, L))
+
+
 def backward_bound_ms(kind, B, L, H, D, lengths, dtype):
-    """dq: 6*D operations per (query, valid key, head) (S, dP, dQ); reads
-    q, out, dout and the valid rows of k, v, plus m and l; writes dq and di.
-    dkv: 8*D (S, dP, dV, dK); reads q, dout, the valid rows of k, v, and m,
-    l, di; writes dk and dv."""
+    """``backward_flops``; bytes: dq reads q, out, dout and the valid rows
+    of k, v, plus m and l, and writes dq and di; dkv reads q, dout, the
+    valid rows of k, v, and m, l, di, and writes dk and dv."""
     es = torch.tensor([], dtype=dtype).element_size()
     kv = sum(_valid_keys(lengths, B, L))
     rows, stats = B * L * H * D * es, B * H * L * 4
     if kind == "dq":
-        flops = 6.0 * H * D * L * kv
         nbytes = 3 * rows + 2 * kv * H * D * es + 2 * stats + rows + stats
     else:
-        flops = 8.0 * H * D * L * kv
         nbytes = 2 * rows + 2 * kv * H * D * es + 3 * stats + 2 * rows
-    return _bound(flops, nbytes + 4 * B, dtype)
+    return _bound(backward_flops(kind, B, L, H, D, lengths), nbytes + 4 * B, dtype)
+
+
+def library_backward_ms(x, heads, mask, dout, scale):
+    """The library's backward on the same inputs (dq, dk and dv together):
+    ``scaled_dot_product_attention`` without dropout (``library_ms``, the
+    yardstick of the earlier rows) and with dropout_p = 0.1 (like for
+    like), as (ms, ms)."""
+    times = []
+    for p in (0.0, DROPOUT):
+        x = x.detach().requires_grad_()
+        xq, xk, xv = (heads(t) for t in x.split(x.shape[-1] // 3, dim=-1))
+        y = F.scaled_dot_product_attention(xq, xk, xv, attn_mask=mask, dropout_p=p, scale=scale)
+        times.append(time_ms(lambda: torch.autograd.grad(y, x, dout, retain_graph=True)))
+        del y
+    return tuple(times)
+
+
+BACKWARD_ENTRIES = {"packed": (packed_attention_bwd_dq, packed_attention_bwd_dkv),
+                    "flash": (flash_attention_bwd_dq, flash_attention_bwd_dkv)}
+
+
+def backward_rows(layout, common, dims, args, kw, outputs, plain_ms, library) -> dict:
+    """The dq and dkv rows of one case of ``layout``: each output (kernel,
+    plain) against the plain version's, the kernel timed with the case's
+    dropout (``ms``) and without (``ms_no_dropout``: what the hash costs),
+    beside its bound and the library's backward without and with dropout
+    (``library``: the pair of ``library_backward_ms``)."""
+    B, L, H, D, lengths, dtype = dims
+    q, k, v, out, dout, m, l, di = args
+    dq_fn, dkv_fn = BACKWARD_ENTRIES[layout]
+    calls = {"dq": lambda **o: dq_fn(q, k, v, out, dout, m, l, lengths, **{**kw, **o}),
+             "dkv": lambda **o: dkv_fn(q, k, v, out, dout, m, l, di, lengths, **{**kw, **o})}
+    rows = {}
+    for kind, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        errs = {w: rel_error(*outputs[w], f"{layout} {w} {common['case']} {dtype}", dtype)
+                for w in names}
+        bound, by = backward_bound_ms(kind, B, L, H, D, lengths, dtype)
+        with torch.no_grad():
+            ms = time_ms(calls[kind])
+            ms_no_dropout = time_ms(lambda: calls[kind](dropout_rate=0.0))
+        name = f"{layout}_attention_bwd_{kind}"
+        rows[name] = {
+            "phase": "kernel", "name": name, **common, "body": backward_body(dtype, D),
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "by_output": errs,
+            "tolerance": f"{REL_TOL[dtype]} x max |plain|",
+            "ms": ms, "ms_no_dropout": ms_no_dropout, "plain_ms": plain_ms,
+            "achieved_tflops": backward_flops(kind, B, L, H, D, lengths) / ms / 1e9,
+            "plain": f"{layout}_attention_bwd_reference (dq, dk and dv together)",
+            "library_ms": library[0],
+            "library": "scaled_dot_product_attention backward without dropout "
+                       "(dq, dk and dv together)",
+            "library_dropout_ms": library[1], "library_dropout": "the same with dropout_p=0.1",
+            "bound_ms": bound, "bound_by": by}
+        emit(rows[name])
+    return rows
+
+
+def phase_mask_readout(layout: str, path: str) -> None:
+    """The dropout mask read out of a layout's backward entries on the card
+    (``backward_mask_readout``: dq, dk and dv, 2 x 12 heads of 64, out = 0),
+    bit for bit, through both bodies: bf16 (wgmma) and fp32 (CUDA cores) at
+    L = 200, fp32 also at the stage-1 L = 749.  Fails on any flipped bit."""
+    for dtype, L in ((torch.bfloat16, 200), (torch.float32, 200), (torch.float32, 749)):
+        found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), L=L)
+        flipped = {f"{what} seed {seed}": int((got != want).sum().item())
+                   for seed, what, got, want in found}
+        row = {"phase": "mask_readout", "path": path, "layout": layout,
+               "dtype": dtype_name(dtype), "body": backward_body(dtype, 64),
+               "shape_BHLD": [2, 12, L, 64], "flipped_bits": flipped}
+        emit(row)
+        check(sum(flipped.values()) == 0, f"{layout} backward mask readout: {row}")
 
 
 def rel_error(got, want, what: str, dtype) -> dict:
@@ -513,38 +618,14 @@ def phase_train_kernels(spec) -> dict:
                 wq, wk, wv = plain_bwd()
                 torch.cuda.synchronize()
                 plain_ms = time_ms(plain_bwd, reps=5)
-            # the library's backward: scaled_dot_product_attention without
-            # dropout on the same inputs, dq, dk and dv together
-            x = qkv.detach().requires_grad_()
-            xq, xk, xv = x.split(H * D, dim=-1)
-            y = F.scaled_dot_product_attention(heads(xq), heads(xk), heads(xv), attn_mask=mask,
-                                               scale=scale)
-            dy = heads(dout)
-            library_ms = time_ms(lambda: torch.autograd.grad(y, x, dy, retain_graph=True))
-            del x, y
-            for name, pairs, kind in (("packed_attention_bwd_dq", (("dq", dq, wq),), "dq"),
-                                      ("packed_attention_bwd_dkv",
-                                       (("dk", dk, wk), ("dv", dv, wv)), "dkv")):
-                errs = {what: rel_error(got, ref, f"{what} {label} {dtype}", dtype)
-                        for what, got, ref in pairs}
-                if kind == "dq":
-                    run = lambda: packed_attention_bwd_dq(q, k, v, out, dout, m, l, lengths, **kw)
-                else:
-                    run = lambda: packed_attention_bwd_dkv(q, k, v, out, dout, m, l, di, lengths, **kw)
-                bound, by = backward_bound_ms(kind, B, L, H, D, lengths, dtype)
-                row = {"phase": "kernel", "name": name, **common,
-                       "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                       "by_output": errs, "tolerance": f"{REL_TOL[dtype]} x max |plain|",
-                       "ms": time_ms(run), "plain_ms": plain_ms,
-                       "plain": "packed_attention_bwd_reference (dq, dk and dv together)",
-                       "library_ms": library_ms,
-                       "library": "scaled_dot_product_attention backward without dropout "
-                                  "(dq, dk and dv together)",
-                       "bound_ms": bound, "bound_by": by}
-                emit(row)
-                results[(name, label, dtype)] = row
+            library = library_backward_ms(qkv, heads, mask, heads(dout), scale)
+            rows = backward_rows("packed", common, (B, L, H, D, lengths, dtype),
+                                 (q, k, v, out, dout, m, l, di), kw,
+                                 {"dq": (dq, wq), "dk": (dk, wk), "dv": (dv, wv)}, plain_ms, library)
+            results.update({(name, label, dtype): row for name, row in rows.items()})
             del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
             torch.cuda.empty_cache()
+    phase_mask_readout("packed", "train")
     return results
 
 
@@ -608,36 +689,15 @@ def phase_flash_kernels() -> dict:
                 wq, wk, wv = plain_bwd()
                 torch.cuda.synchronize()
                 plain_ms = time_ms(plain_bwd, reps=5)
-            x = qkv.detach().requires_grad_()
-            xq, xk, xv = (t.view(B, L, H, D).transpose(1, 2) for t in x.split(H * D, dim=-1))
-            y = F.scaled_dot_product_attention(xq, xk, xv, attn_mask=mask, scale=scale)
-            library_ms = time_ms(lambda: torch.autograd.grad(y, x, dout, retain_graph=True))
-            del x, y
-            for name, pairs, kind in (("flash_attention_bwd_dq", (("dq", dq, wq),), "dq"),
-                                      ("flash_attention_bwd_dkv",
-                                       (("dk", dk, wk), ("dv", dv, wv)), "dkv")):
-                errs = {what: rel_error(got, ref, f"flash {what} {label} {dtype}", dtype)
-                        for what, got, ref in pairs}
-                if kind == "dq":
-                    run = lambda: flash_attention_bwd_dq(q, k, v, out, dout, m, l, lengths, **kw)
-                else:
-                    run = lambda: flash_attention_bwd_dkv(q, k, v, out, dout, m, l, di, lengths, **kw)
-                bound, by = backward_bound_ms(kind, B, L, H, D, lengths, dtype)
-                with torch.no_grad():
-                    ms = time_ms(run)
-                row = {"phase": "kernel", "name": name, **common,
-                       "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                       "by_output": errs, "tolerance": f"{REL_TOL[dtype]} x max |plain|",
-                       "ms": ms, "plain_ms": plain_ms,
-                       "plain": "flash_attention_bwd_reference (dq, dk and dv together)",
-                       "library_ms": library_ms,
-                       "library": "scaled_dot_product_attention backward without dropout "
-                                  "(dq, dk and dv together)",
-                       "bound_ms": bound, "bound_by": by}
-                emit(row)
-                results[(name, label, dtype)] = row
+            library = library_backward_ms(qkv, lambda t: t.view(B, L, H, D).transpose(1, 2),
+                                          mask, dout, scale)
+            rows = backward_rows("flash", common, (B, L, H, D, lengths, dtype),
+                                 (q, k, v, out, dout, m, l, di), kw,
+                                 {"dq": (dq, wq), "dk": (dk, wk), "dv": (dv, wv)}, plain_ms, library)
+            results.update({(name, label, dtype): row for name, row in rows.items()})
             del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
             torch.cuda.empty_cache()
+    phase_mask_readout("flash", "final_distill")
     return results
 
 
@@ -1547,8 +1607,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": r["dtype"],
-            "shape": r.get("shape_BLHD") or r["shape_BHLD"],
+            "shape": r.get("shape_BLHD") or r["shape_BHLD"], "body": r.get("body", "fma"),
         }
+        if "library_dropout_ms" in r:
+            entry["library_dropout_ms"] = r["library_dropout_ms"]
         if name in serve_rows:  # its serving row, without dropout
             sr = serve_rows[name]
             entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",

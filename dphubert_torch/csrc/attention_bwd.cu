@@ -10,14 +10,14 @@
 //     flash_attention_bwd_dq and flash_attention_bwd_dkv.
 // The two families compute the same function (_flash_bwd_rule :382-469 and
 // _packed_bwd differ only in layout and tiling), so, as in attention_fwd.cu,
-// one templated body per kernel serves both layouts through (batch, row,
-// head) strides.  di = rowsum(out * dout) per head, which both TPU rules
-// computed outside the kernels (flash_attention.py:390, packed :302-309), is
-// fused into the dq kernel's prologue: dq writes di as (B, H, L) fp32 and
-// dkv, launched after it on the same stream, reads it.  Both kernels
-// regenerate the dropout mask from the hash in attention_common.cuh at
-// absolute (b, h, row, col) and read the row statistics m and l that
-// attention_fwd.cu stored, so neither p nor the mask is ever in memory.
+// one body per kernel serves both layouts through (batch, row, head)
+// strides.  di = rowsum(out * dout) per head, which both TPU rules computed
+// outside the kernels (flash_attention.py:390, packed :302-309), is fused
+// into the dq kernel's prologue: dq writes di as (B, H, L) fp32 and dkv,
+// launched after it on the same stream, reads it.  Both kernels regenerate
+// the dropout mask from the hash in attention_common.cuh at absolute (b, h,
+// row, col) and read the row statistics m and l that attention_fwd.cu
+// stored, so neither p nor the mask is ever in memory.
 //
 // Semantics (as the Pallas kernels, in fp32 whatever the input type):
 //   p  = exp(s - m) / l, the undropped softmax, s masked as in the forward;
@@ -25,26 +25,37 @@
 //   ds = p * (dp - di) * scale;
 //   dq = ds . k;   dk = ds^T . q;   dv = p~^T . dout, p~ the dropped p
 //   scaled by 1/(1-rate).
+// dkv is one block per KV tile looping over the q tiles (the TPU grid's
+// sequential axis) with dK and dV in registers, and dq one block per q tile
+// looping over the KV tiles up to lengths[b]: nothing is summed across
+// blocks, so there are no atomics and a rerun gives the same bits.  KV tiles
+// wholly past lengths[b] write zeros.
 //
 // What bounds it on an H100: dq does 6*D operations per (query, valid key,
 // head) and dkv 8*D, against ~6 and ~8 (B, L, H*D) tensors of traffic, so
-// both are bound by operations at these shapes.  Like the forward, this
-// first version runs fp32 FMA on the CUDA cores (67 TFLOP/s peak, not the
-// tensor cores' 989 TFLOP/s in bf16); what the design does about the bound:
-//   * dq: one block per (64-row q tile, head, batch) looping over the KV
-//     tiles up to lengths[b] (tiles past it have p = 0 and add nothing);
-//     S and dP for a 64x64 tile come out of one pass over D (each thread a
-//     4x4 register tile of both), then dS goes through shared memory into
-//     the 4x(D/16) dq tile each thread keeps in registers;
-//   * dkv: one block per (64-row KV tile, head, batch) looping over all q
-//     tiles with dK and dV held in registers, so nothing is accumulated
-//     across blocks: no atomics, and the result is deterministic.  This
-//     loop takes the place of the TPU grid's sequential "arbitrary" axis.
-//     KV tiles wholly past lengths[b] write zeros and stop;
-//   * tiles staged in shared memory as fp32, rows padded by one float so a
-//     warp's column reads hit distinct banks; dkv's P~^T and dS^T tiles are
-//     kept apart so one barrier serves both products.
+// both are bound by operations: at the stage-1 shape (16, 749, 12, 64) in
+// bf16, 4.14e10 and 5.52e10 operations, 0.042 and 0.056 ms at the tensor
+// cores' 989 TFLOP/s.  Two bodies per kernel, chosen at compile time by
+// (dtype, D) in dispatch():
+//   * bf16 at D = 64, every training step on the card (HuBERT Base's stage
+//     1, the pruned students' final distill): the wgmma bodies of
+//     attention_bwd_wgmma.cuh.  All four products of a tile pair run on the
+//     tensor cores; Q, K, V and dO tiles sit in shared memory as bf16,
+//     128-byte swizzled, the streamed ones in a cp.async ring; P~ and dS
+//     stay in registers, rounded to bf16 as the A operand of the second
+//     products (the one numerical difference from the CUDA-core body).
+//   * fp32 (any D) and D = 80 (any dtype): the CUDA-core bodies below, fp32
+//     FMA (67 TFLOP/s peak).  fp32 is the path of the card-vs-CPU step
+//     checks, held to 1e-4 per kernel and 1e-3 per gradient, which TF32
+//     (10-bit mantissa) products would break; no configuration trains at
+//     D = 80 on the card (the XLarge preset is a factory only).  S and dP of
+//     a 64x64 tile come out of one pass over D, each thread a 4x4 register
+//     tile of both; dS (and dkv's P~^T) go through shared memory into the
+//     gradient tile each thread keeps in registers.  Tiles are staged as
+//     fp32, rows padded by one float so a warp's column reads hit distinct
+//     banks.
 #include "attention_common.cuh"
+#include "attention_bwd_wgmma.cuh"
 
 namespace {
 
@@ -414,16 +425,59 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The wgmma bodies read rows with 16-byte copies and write bf16 pairs.
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool rows_of_8(const Strides& s) {
+  return s.batch % 8 == 0 && s.row % 8 == 0 && s.head % 8 == 0;
+}
+
+cudaError_t launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  auto kernel = attention_bwd_dq_wgmma_kernel;
+  static bool configured = false;
+  cudaError_t err = allow_smem(kernel, kWgDqSmem, &configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.L + kWgRows - 1) / kWgRows, a.H, a.B);
+  kernel<<<grid, kWgThreads, kWgDqSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.out),
+      static_cast<const __nv_bfloat16*>(a.dout), a.m, a.l, a.di,
+      static_cast<__nv_bfloat16*>(a.dq), a.lengths, a.H, a.L, a.in, a.os, a.gs, a.scale,
+      a.drop);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  auto kernel = attention_bwd_dkv_wgmma_kernel;
+  static bool configured = false;
+  cudaError_t err = allow_smem(kernel, kWgDkvSmem, &configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.L + kWgRows - 1) / kWgRows, a.H, a.B);
+  kernel<<<grid, kWgThreads, kWgDkvSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout), a.m,
+      a.l, a.di, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.lengths, a.H, a.L, a.in, a.os, a.gs, a.scale, a.drop);
+  return cudaGetLastError();
+}
+
 template <bool kDq>
 cudaError_t dispatch(int dtype, int D, const BwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.L <= 0) return cudaErrorInvalidValue;
+  if (dtype == 1 && D == 64) {  // the tensor-core bodies
+    const void* ptrs[] = {a.q, a.k, a.v, a.dout, kDq ? a.out : a.dout,
+                          kDq ? a.dq : a.dk, kDq ? a.dq : a.dv};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    if (!rows_of_8(a.in) || !rows_of_8(a.os) || !rows_of_8(a.gs))
+      return cudaErrorMisalignedAddress;
+    return kDq ? launch_dq_wgmma(a, stream) : launch_dkv_wgmma(a, stream);
+  }
 #define DPH_BWD_CASE(T, DD) \
   return kDq ? launch_dq<T, DD>(a, stream) : launch_dkv<T, DD>(a, stream)
   if (dtype == 0) {
     if (D == 64) DPH_BWD_CASE(float, 64);
     if (D == 80) DPH_BWD_CASE(float, 80);
   } else if (dtype == 1) {
-    if (D == 64) DPH_BWD_CASE(__nv_bfloat16, 64);
     if (D == 80) DPH_BWD_CASE(__nv_bfloat16, 80);
   }
 #undef DPH_BWD_CASE

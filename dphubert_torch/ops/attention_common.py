@@ -126,7 +126,7 @@ def softmax_parts(q: torch.Tensor, k: torch.Tensor, lengths: Optional[torch.Tens
 
 def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate: float,
                         seed: Optional[torch.Tensor], bias: Optional[torch.Tensor] = None,
-                        gate: Optional[torch.Tensor] = None):
+                        gate: Optional[torch.Tensor] = None, round_operands: bool = False):
     """(dq, dk, dv) of (B, H, L, D) tensors in ``acc_dtype``, by the formulas
     of the TPU backward kernels (flash ``_bwd_dq_kernel`` /
     ``_bwd_dkv_kernel``, packed ``_heads_loop_bwd_dq`` / ``_dkv``, WavLM
@@ -134,7 +134,12 @@ def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate:
     and scaled; di = rowsum(out * dout); ds = p (dp - di); dq = scale ds k,
     dk = scale ds^T q, dv = p~^T dout with p~ the dropped, scaled p.  With a
     WavLM bias also (dbias, dgate): dbias[h, i, j] = sum_b gate ds and
-    dgate[b, h, i] = sum_j ds bias, from the unscaled ds."""
+    dgate[b, h, i] = sum_j ds bias, from the unscaled ds.
+
+    ``round_operands`` rounds p~ and scale * ds to q's dtype before the
+    three products, as the tensor-core kernels of ``csrc/attention_bwd.cu``
+    do with bf16 inputs (their A operands); for fp32 and float64 inputs the
+    rounding is the identity."""
     acc = acc_dtype(q.dtype)
     p, _, _, l_inv = softmax_parts(q, k, lengths, scale, bias, gate)
     p = p * l_inv
@@ -150,14 +155,25 @@ def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate:
         p_used = p
     di = (out.to(acc) * do).sum(dim=-1, keepdim=True)
     ds = p * (dp - di)
-    dq = torch.matmul(ds * scale, k.to(acc))
-    dk = torch.matmul((ds * scale).transpose(-1, -2), q.to(acc))
+    ds_scaled = ds * scale
+    if round_operands:
+        ds_scaled = ds_scaled.to(q.dtype).to(acc)
+        p_used = p_used.to(q.dtype).to(acc)
+    dq = torch.matmul(ds_scaled, k.to(acc))
+    dk = torch.matmul(ds_scaled.transpose(-1, -2), q.to(acc))
     dv = torch.matmul(p_used.transpose(-1, -2), do)
     if bias is None:
         return dq, dk, dv
     dbias = (gate.to(acc)[..., None] * ds).sum(dim=0)
     dgate = (ds * bias.to(acc)[None]).sum(dim=-1)
     return dq, dk, dv, dbias, dgate
+
+
+def backward_body(dtype: torch.dtype, head_dim: int) -> str:
+    """Which body ``csrc/attention_bwd.cu`` runs for the packed and flash
+    backward entries: "wgmma" (tensor cores) for bf16 at head_dim 64, "fma"
+    (fp32 on the CUDA cores) otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "fma"
 
 
 def check_kernel_inputs(

@@ -81,10 +81,13 @@ def flash_attention_bwd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward pair: (dq, dk, dv) in q's dtype by the
     formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
-    (``attention_common.attention_bwd_plain``)."""
+    (``attention_common.attention_bwd_plain``), with p~ and ds rounded to
+    bf16 before the products for bf16 inputs, as the kernels' tensor-core
+    operands are."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    grads = attention_bwd_plain(q, k, v, out, dout, lengths, scale, dropout_rate, seed)
+    grads = attention_bwd_plain(q, k, v, out, dout, lengths, scale, dropout_rate, seed,
+                                round_operands=True)
     return tuple(g.to(q.dtype) for g in grads)
 
 

@@ -1,0 +1,86 @@
+"""The dropout mask read back out of the attention backward entries.
+
+With chosen inputs the gradients that ``packed_attention_bwd_dq`` / ``_dkv``
+and ``flash_attention_bwd_dq`` / ``_dkv`` return are integers whose bits are
+the keep mask the kernel drew at each (batch, head, row, column), so a test
+can hold the kernels' device hash, at every accumulator element's (row,
+column), bit for bit against the plain mask (``dropout_keep_mask``).  The
+tests run it on the CPU (plain versions) and on the card, and
+``chip_smoke.py`` runs it on the card through both backward bodies.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Tuple
+
+import torch
+
+from .attention_common import dropout_keep_mask
+from .flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq
+from .packed_attention import packed_attention_bwd_dkv, packed_attention_bwd_dq
+
+
+def _coded(L, D, device):
+    """(L, D) fp32: row j holds 2**(j // D) in column j % D."""
+    j = torch.arange(L, device=device)
+    x = torch.zeros(L, D, device=device)
+    x[j, j % D] = 2.0 ** (j // D).float()
+    return x
+
+
+def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterable[int],
+                          B: int = 2, H: int = 12, L: int = 200, D: int = 64,
+                          rate: float = 0.1) -> List[Tuple[int, str, torch.Tensor, torch.Tensor]]:
+    """The dropout mask read out of the dq and dkv entries of ``layout``
+    ("packed" or "flash") in three runs per seed, with out = 0 (so di = 0),
+    no lengths and m = 0, l = L (the statistics of q k^T = 0):
+      dq: q = 0 (p = 1/L), k coded, v and dout one-hot in column 0 (dp = 1):
+          round(dq L keep / scale) holds row i of the mask in its bits;
+      dk: k = 0, q coded, v and dout as above: round(dk L keep / scale)
+          holds column j;
+      dv: q = k = 0, dout coded: round(dv L keep) holds column j.
+    Returns [(seed, what, got, want)] with (B, H, L, L) boolean masks."""
+    keep = 1.0 - rate
+    scale = D ** -0.5
+    zero, coded = torch.zeros(L, D, device=device), _coded(L, D, device)
+    onehot = torch.zeros(L, D, device=device)
+    onehot[:, 0] = 1.0
+    if layout == "packed":
+        def full(x):
+            return x.repeat(1, H).expand(B, L, H * D).contiguous().to(dtype)
+
+        def heads(t):
+            return t.view(B, L, H, D).transpose(1, 2)
+
+        dq_fn, dkv_fn, kw = packed_attention_bwd_dq, packed_attention_bwd_dkv, dict(num_heads=H)
+    else:
+        def full(x):
+            return x.expand(B, H, L, D).contiguous().to(dtype)
+
+        def heads(t):
+            return t
+
+        dq_fn, dkv_fn, kw = flash_attention_bwd_dq, flash_attention_bwd_dkv, {}
+    m = torch.zeros(B, H, L, device=device)
+    l = torch.full((B, H, L), float(L), device=device)
+    b = torch.arange(B, device=device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device).view(1, H, 1, 1)
+    j = torch.arange(L, device=device)
+    runs = {"dq": (zero, coded, onehot, onehot, 1.0 / scale),
+            "dk": (coded, zero, onehot, onehot, 1.0 / scale),
+            "dv": (zero, zero, zero, coded, 1.0)}
+    found = []
+    for seed in seeds:
+        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
+        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
+        for what, (q, k, v, dout, factor) in runs.items():
+            q, k, v, dout = (full(x) for x in (q, k, v, dout))
+            args = dict(scale=scale, dropout_rate=rate, seed=t_seed, **kw)
+            with torch.no_grad():
+                dq, di = dq_fn(q, k, v, torch.zeros_like(q), dout, m, l, None, **args)
+                dk, dv = dkv_fn(q, k, v, torch.zeros_like(q), dout, m, l, di, None, **args)
+            grad = heads({"dq": dq, "dk": dk, "dv": dv}[what]).double()
+            code = torch.round(grad * (L * keep * factor)).long()
+            got = ((code[..., j % D] >> (j // D)) & 1).bool()
+            found.append((seed, what, got, want if what == "dq" else want.transpose(-1, -2)))
+    return found

@@ -131,12 +131,14 @@ def packed_attention_bwd_reference(
     the formulas of ``_heads_loop_bwd_dq`` / ``_heads_loop_bwd_dkv`` in fp32
     (float64 for float64 inputs): p recomputed; dp = dout v^T, dropped and
     scaled; di = rowsum(out * dout); ds = p (dp - di) scale; dq = ds k,
-    dk = ds^T q, dv = p~^T dout with p~ the dropped, scaled p."""
+    dk = ds^T q, dv = p~^T dout with p~ the dropped, scaled p.  For bf16
+    inputs p~ and ds are rounded to bf16 before the products, as the
+    kernels' tensor-core operands are."""
     D = q.shape[-1] // num_heads
     if scale is None:
         scale = D ** -0.5
     grads = attention_bwd_plain(*(_heads(t, num_heads) for t in (q, k, v, out, dout)),
-                                lengths, scale, dropout_rate, seed)
+                                lengths, scale, dropout_rate, seed, round_operands=True)
     return tuple(_packed(g, q.dtype) for g in grads)
 
 

@@ -20,6 +20,7 @@ from dphubert_torch.models.components import SelfAttention, attention_route
 from dphubert_torch.ops.attention_common import (
     dropout_keep_mask,
     dropout_threshold,
+    keep_mask,
 )
 from dphubert_torch.ops.flash_attention import (
     FlashAttentionFn,
@@ -30,6 +31,7 @@ from dphubert_torch.ops.flash_attention import (
     flash_attention_qkv,
     flash_attention_reference,
 )
+from dphubert_torch.ops.mask_readout import backward_mask_readout
 from dphubert_torch.ops.packed_attention import (
     PackedAttentionFn,
     packed_attention,
@@ -201,6 +203,43 @@ def test_plain_versions_round_p_to_the_input_dtype():
     want_f = ((e.bfloat16().float() @ v.float()) * l_inv).bfloat16()
     got_f, _, _ = flash_attention_reference(q[None, None], k[None, None], v[None, None])
     torch.testing.assert_close(got_f[0, 0], want_f, atol=0, rtol=0)
+
+
+def test_plain_backward_rounds_p_and_ds_to_bf16():
+    """bf16 inputs: both plain backwards round p~ and scale * ds to bf16
+    before the dV, dK and dQ products, as the tensor-core kernels' A operands
+    are; fp32 inputs are not rounded.  Pinned bit for bit against the
+    formulas written out here, dropout on."""
+    rng = np.random.default_rng(5)
+    B, H, L, D, rate, scale = 1, 2, 33, 16, 0.1, 0.25
+    seed = torch.tensor([77], dtype=torch.int32)
+    inv_keep = 1.0 / (1.0 - rate)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, out, do = (torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32))
+                            .to(dtype) for _ in range(5))
+        f = lambda t: t.float()
+        s = torch.matmul(f(q), f(k).transpose(-1, -2)) * scale
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+        keep = keep_mask(seed, rate, B, H, L, "cpu")
+        p_used = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, torch.matmul(f(do), f(v).transpose(-1, -2)) * inv_keep, 0.0)
+        ds = p * (dp - (f(out) * f(do)).sum(dim=-1, keepdim=True)) * scale
+        ds_r, p_r = ds.to(dtype).float(), p_used.to(dtype).float()
+        want = [torch.matmul(ds_r, f(k)), torch.matmul(ds_r.transpose(-1, -2), f(q)),
+                torch.matmul(p_r.transpose(-1, -2), f(do))]
+        kw = dict(scale=scale, dropout_rate=rate, seed=seed)
+        got = flash_attention_bwd_reference(q, k, v, out, do, **kw)
+        packed = lambda t: t.transpose(1, 2).reshape(B, L, H * D)
+        got_p = packed_attention_bwd_reference(*(packed(t) for t in (q, k, v, out, do)),
+                                               num_heads=H, **kw)
+        for name, g, gp, w in zip("qkv", got, got_p, want):
+            torch.testing.assert_close(g, w.to(dtype), atol=0, rtol=0, msg=f"flash d{name}")
+            torch.testing.assert_close(gp, packed(w.to(dtype)), atol=0, rtol=0,
+                                       msg=f"packed d{name}")
+        if dtype == torch.bfloat16:  # the rounding shows in the results
+            unrounded = torch.matmul(p_used.transpose(-1, -2), f(do)).to(dtype)
+            assert not torch.equal(got[2], unrounded)
 
 
 def test_dropout_threshold_is_truncated_from_a_double():
@@ -467,6 +506,30 @@ def test_backward_kernels_match_plain_versions_on_card(dtype, rel, lengths, rate
     x2 = qkv.clone().requires_grad_()
     packed_attention_qkv(x2, lens, **kw).backward(dout)
     assert torch.equal(x.grad, x2.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("layout", ["packed", "flash"])
+def test_dropout_mask_read_out_of_the_backward(layout, device, dtype):
+    """The backward entries' dropout mask, bit for bit the plain mask, for
+    a negative seed and the int32 extremes, read out of dq, dk and dv as in
+    ``backward_mask_readout``; on the card that is the device hash at each
+    accumulator element's (row, column) inside the bf16 tensor-core bodies
+    and the fp32 CUDA-core ones, so a wrong fragment map flips bits.  L =
+    200 ends mid-tile (3 x 64 + 8); in bf16 the codes (< 2**4) survive the
+    roundings of p~, ds and the output."""
+    if device == "cuda":
+        _card()
+    fns = ((packed_attention_bwd_dq, packed_attention_bwd_dkv) if layout == "packed"
+           else (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+    before = [f.launches for f in fns]
+    seeds = (-123456789, 2**31 - 1, -2**31)
+    for seed, what, got, want in backward_mask_readout(layout, device, dtype, seeds):
+        assert torch.equal(got, want), f"{what}, seed {seed}: {(got != want).sum().item()} bits"
+        assert 0.85 < want.float().mean().item() < 0.95
+    n = 3 * len(seeds) if device == "cuda" else 0
+    assert [f.launches for f in fns] == [c + n for c in before]
 
 
 @pytest.mark.gpu
