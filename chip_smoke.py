@@ -37,9 +37,11 @@ Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
 the card at the shapes its path gives it, timed beside its bound and a
 library call (the backward rows beside two: the library's backward without
-and with dropout), and the packed and flash backward entries give up their
-dropout mask bit for bit through both bodies (bf16 on the tensor cores,
-fp32 on the CUDA cores; the rows and the kernels line name the body), and
+and with dropout), and the packed and flash entries, forward and backward,
+give up their dropout mask bit for bit through both bodies (bf16 on the
+tensor cores, fp32 on the CUDA cores; the rows and the kernels line name
+the body, and the build fails if a tensor-core body spills or ptxas
+warns about its wgmma), and
 each path is checked to have gone through its kernels (launch counts, set
 to 0 just before the path and read just after, exactly what the routing
 rule predicts).  Each phase prints JSON lines; any failure raises and the
@@ -76,8 +78,8 @@ from dphubert_torch.models.components import attention_route, output_lengths
 from dphubert_torch.models.gates import gate_paths
 from dphubert_torch.models.hardconcrete import EPS
 from dphubert_torch.ops import _build
-from dphubert_torch.ops.attention_common import backward_body
-from dphubert_torch.ops.mask_readout import backward_mask_readout
+from dphubert_torch.ops.attention_common import kernel_body
+from dphubert_torch.ops.mask_readout import backward_mask_readout, forward_mask_readout
 from dphubert_torch.cli import distill as cli_distill
 from dphubert_torch.cli import final_distill as cli_final_distill
 from dphubert_torch.cli import load_dpmodel as cli_load_dpmodel
@@ -282,10 +284,13 @@ def dtype_name(dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
-# the tensor-core backward bodies (bf16, D = 64): two resident bf16 tiles,
-# a two-stage ring of two tiles, m, l and di of 64 rows (one set in dq, one a
-# stage in dkv), 1024 bytes to align the base (csrc/attention_bwd_wgmma.cuh)
-WGMMA_SMEM_BYTES = {"attention_bwd_dq_wgmma_kernel": 6 * 8192 + 768 + 1024,
+# the tensor-core bodies (bf16, D = 64), 8192-byte bf16 tiles and 1024 bytes
+# to align the base: the forward's resident Q tile and a two-stage ring of
+# K and V (csrc/attention_fwd.cu); the backward's two resident tiles, the
+# same ring, and m, l and di of 64 rows (one set in dq, one a stage in dkv;
+# csrc/attention_bwd_wgmma.cuh)
+WGMMA_SMEM_BYTES = {"attention_fwd_wgmma_kernel": 5 * 8192 + 1024,
+                    "attention_bwd_dq_wgmma_kernel": 6 * 8192 + 768 + 1024,
                     "attention_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 768 + 1024}
 
 
@@ -317,8 +322,8 @@ def _ptxas(report: str):
                          r"attention_bwd_dkv_kernel|wavlm_fwd_kernel|wavlm_dkv_kernel|"
                          r"wavlm_bwd_q_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
                          block)
-        wgmma = re.search(r"(attention_bwd_dq_wgmma_kernel|attention_bwd_dkv_wgmma_kernel)",
-                          block)
+        wgmma = re.search(r"(attention_fwd_wgmma_kernel|attention_bwd_dq_wgmma_kernel|"
+                          r"attention_bwd_dkv_wgmma_kernel)", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         if wgmma is not None:
@@ -362,6 +367,7 @@ def phase_card() -> str:
         # ptxas names the wgmma it serializes ("Potential Performance Loss")
         warnings = [line.strip() for line in report.splitlines() if "wgmma" in line.lower()
                     and "Compiling entry" not in line and "Function properties" not in line]
+        check(not warnings, f"{name}: ptxas warns about wgmma: {warnings}")
         emit({"phase": "build", "source": f"dphubert_torch/csrc/{name}.cu",
               "seconds": _build.build_reports[name]["seconds"], "ptxas": rows,
               "wgmma_warnings": warnings})
@@ -385,16 +391,19 @@ def _valid_keys(lengths, B: int, L: int):
     return [int(n) if int(n) > 0 else L for n in lengths.tolist()]
 
 
+def forward_flops(B, L, H, D, lengths) -> float:
+    """4*D operations per (query, valid key) and head (QK^T and PV); a row
+    of length 0 averages over all L keys."""
+    return 4.0 * H * D * L * sum(_valid_keys(lengths, B, L))
+
+
 def attention_bound_ms(B, L, H, D, lengths, dtype, extra_out_bytes=0):
     """Least time for the forward's work on these inputs: q and out over
-    all rows, k and v over the valid keys only; 4*D operations per (query,
-    valid key) and head (QK^T and PV).  A row of length 0 averages over all
-    L keys."""
+    all rows, k and v over the valid keys only; ``forward_flops``."""
     es = torch.tensor([], dtype=dtype).element_size()
     kv = _valid_keys(lengths, B, L)
-    flops = 4.0 * H * D * L * sum(kv)
     nbytes = (2 * B * L + 2 * sum(kv)) * H * D * es + 4 * B + extra_out_bytes
-    return _bound(flops, nbytes, dtype)
+    return _bound(forward_flops(B, L, H, D, lengths), nbytes, dtype)
 
 
 def backward_flops(kind, B, L, H, D, lengths) -> float:
@@ -457,7 +466,7 @@ def backward_rows(layout, common, dims, args, kw, outputs, plain_ms, library) ->
             ms_no_dropout = time_ms(lambda: calls[kind](dropout_rate=0.0))
         name = f"{layout}_attention_bwd_{kind}"
         rows[name] = {
-            "phase": "kernel", "name": name, **common, "body": backward_body(dtype, D),
+            "phase": "kernel", "name": name, **common, "body": kernel_body(dtype, D),
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "by_output": errs,
             "tolerance": f"{REL_TOL[dtype]} x max |plain|",
             "ms": ms, "ms_no_dropout": ms_no_dropout, "plain_ms": plain_ms,
@@ -481,11 +490,31 @@ def phase_mask_readout(layout: str, path: str) -> None:
         found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), L=L)
         flipped = {f"{what} seed {seed}": int((got != want).sum().item())
                    for seed, what, got, want in found}
-        row = {"phase": "mask_readout", "path": path, "layout": layout,
-               "dtype": dtype_name(dtype), "body": backward_body(dtype, 64),
+        row = {"phase": "mask_readout", "entry": "backward", "path": path, "layout": layout,
+               "dtype": dtype_name(dtype), "body": kernel_body(dtype, 64),
                "shape_BHLD": [2, 12, L, 64], "flipped_bits": flipped}
         emit(row)
         check(sum(flipped.values()) == 0, f"{layout} backward mask readout: {row}")
+
+
+def phase_forward_mask_readout(layout: str, path: str) -> None:
+    """The dropout mask read out of a layout's forward entry on the card
+    (``forward_mask_readout``: q = k = 0, coded value rows, 2 x 12 heads of
+    64, 11 for flash), bit for bit, through both bodies at L = 200: bf16
+    (wgmma, every accumulator element's (row, column)) and fp32 (CUDA
+    cores).  Fails on any flipped bit, or on a flash l other than L."""
+    H = 12 if layout == "packed" else 11
+    L = 200
+    for dtype in (torch.bfloat16, torch.float32):
+        found = forward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), H=H, L=L)
+        flipped = {f"seed {seed}": int((got != want).sum().item())
+                   for seed, got, want, _ in found}
+        l_ok = all(l is None or bool((l == L).all()) for *_, l in found)
+        row = {"phase": "mask_readout", "entry": "forward", "path": path, "layout": layout,
+               "dtype": dtype_name(dtype), "body": kernel_body(dtype, 64),
+               "shape_BHLD": [2, H, L, 64], "flipped_bits": flipped, "l_is_L": l_ok}
+        emit(row)
+        check(sum(flipped.values()) == 0 and l_ok, f"{layout} forward mask readout: {row}")
 
 
 def rel_error(got, want, what: str, dtype) -> dict:
@@ -551,10 +580,13 @@ def phase_kernels(spec) -> dict:
                 plain_ms = time_ms(plain)
                 library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, scale=scale))
+            # serving runs without dropout: ms_no_dropout is ms
             row = {"phase": "kernel", "path": "serve", "name": name, "dtype": dtype_name(dtype),
-                   "shape_BLHD": [B, L, H, D], "lengths": lengths.tolist(),
-                   **errs, **extra,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "shape_BLHD": [B, L, H, D], "lengths": lengths.tolist(), "dropout": 0.0,
+                   "body": kernel_body(dtype, D), **errs, **extra,
+                   "ms": ms, "ms_no_dropout": ms,
+                   "achieved_tflops": forward_flops(B, L, H, D, lengths) / ms / 1e9,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound, "bound_by": by}
             emit(row)
             results[(name, dtype)] = row
@@ -600,8 +632,12 @@ def phase_train_kernels(spec) -> dict:
                 torch.cuda.synchronize()
                 errs = rel_error(out, want, f"fwd {label} {dtype}", dtype)
                 bound, by = attention_bound_ms(B, L, H, D, lengths, dtype)
-                row = {"phase": "kernel", "name": "packed_attention_fwd", **common, **errs,
-                       "ms": time_ms(lambda: packed_attention(q, k, v, lengths, **kw)),
+                ms = time_ms(lambda: packed_attention(q, k, v, lengths, **kw))
+                row = {"phase": "kernel", "name": "packed_attention_fwd", **common,
+                       "body": kernel_body(dtype, D), **errs, "ms": ms,
+                       "ms_no_dropout": time_ms(lambda: packed_attention(
+                           q, k, v, lengths, **{**kw, "dropout_rate": 0.0})),
+                       "achieved_tflops": forward_flops(B, L, H, D, lengths) / ms / 1e9,
                        "plain_ms": time_ms(lambda: packed_attention_reference(q, k, v, lengths, **kw),
                                            reps=5),
                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -626,6 +662,7 @@ def phase_train_kernels(spec) -> dict:
             del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
             torch.cuda.empty_cache()
     phase_mask_readout("packed", "train")
+    phase_forward_mask_readout("packed", "train")
     return results
 
 
@@ -672,8 +709,12 @@ def phase_flash_kernels() -> dict:
                       f"flash fwd {label} {dtype} statistics: {stats}")
                 bound, by = attention_bound_ms(B, L, H, D, lengths, dtype,
                                                extra_out_bytes=2 * 4 * B * H * L)
-                row = {"phase": "kernel", "name": "flash_attention_fwd", **common, **errs, **stats,
-                       "ms": time_ms(lambda: flash_attention(q, k, v, lengths, **kw)),
+                ms = time_ms(lambda: flash_attention(q, k, v, lengths, **kw))
+                row = {"phase": "kernel", "name": "flash_attention_fwd", **common,
+                       "body": kernel_body(dtype, D), **errs, **stats, "ms": ms,
+                       "ms_no_dropout": time_ms(lambda: flash_attention(
+                           q, k, v, lengths, **{**kw, "dropout_rate": 0.0})),
+                       "achieved_tflops": forward_flops(B, L, H, D, lengths) / ms / 1e9,
                        "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, lengths, **kw),
                                            reps=5),
                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -698,6 +739,7 @@ def phase_flash_kernels() -> dict:
             del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
             torch.cuda.empty_cache()
     phase_mask_readout("flash", "final_distill")
+    phase_forward_mask_readout("flash", "final_distill")
     return results
 
 
@@ -1593,7 +1635,8 @@ def main() -> int:
         **{name: wavlm_kernels[(name, "train", bf16)] for name in KERNELS
            if name.startswith("wavlm_")},
     }
-    serve_rows = {"flash_attention_fwd": kernels[("flash_attention_fwd", bf16)],
+    serve_rows = {"packed_attention_fwd": kernels[("packed_attention_fwd", bf16)],
+                  "flash_attention_fwd": kernels[("flash_attention_fwd", bf16)],
                   "wavlm_attention_fwd": wavlm_kernels[("wavlm_attention_fwd", "serve_batch2",
                                                         bf16)]}
     line = []
@@ -1609,15 +1652,19 @@ def main() -> int:
             "library_ms": r["library_ms"], "dtype": r["dtype"],
             "shape": r.get("shape_BLHD") or r["shape_BHLD"], "body": r.get("body", "fma"),
         }
-        if "library_dropout_ms" in r:
-            entry["library_dropout_ms"] = r["library_dropout_ms"]
+        for key in ("ms_no_dropout", "achieved_tflops", "library_dropout_ms"):
+            if key in r:
+                entry[key] = r[key]
         if name in serve_rows:  # its serving row, without dropout
             sr = serve_rows[name]
             entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                 "max_abs_err")}
+                                                 "max_abs_err", "achieved_tflops") if k in sr}
             entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
     check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
+    bodies = {e["name"]: e["body"] for e in line if not e["name"].startswith("wavlm_")}
+    check(set(bodies.values()) == {"wgmma"},
+          f"bf16 bodies of the packed and flash entries: {bodies}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})

@@ -425,12 +425,6 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The wgmma bodies read rows with 16-byte copies and write bf16 pairs.
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-bool rows_of_8(const Strides& s) {
-  return s.batch % 8 == 0 && s.row % 8 == 0 && s.head % 8 == 0;
-}
-
 cudaError_t launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
   auto kernel = attention_bwd_dq_wgmma_kernel;
   static bool configured = false;

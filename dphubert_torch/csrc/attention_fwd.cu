@@ -10,7 +10,7 @@
 //     (B, H, L, D) layout that also stores the softmax statistics m and l,
 //     entry point flash_attention_fwd; with dropout for training, and m and
 //     l read by the flash backward kernels of attention_bwd.cu.
-// Both layouts differ only in strides, so one templated body serves both.
+// Both layouts differ only in strides, so each body below serves both.
 //
 // Semantics (as the Pallas kernels):
 //   s = (q . k) * scale in fp32; key column c of batch b is masked with
@@ -28,22 +28,38 @@
 // What bounds it on an H100: at the serving and training shapes (L ~ 750-
 // 1300, D = 64) the work is 4*B*H*L^2*D operations against ~4*B*L*H*D*bytes
 // of traffic, i.e. well above the card's ridge point: the kernel is bound by
-// operations.  This first version computes on the CUDA cores with fp32 FMA
-// (67 TFLOP/s peak, against 989 TFLOP/s for bf16 on the tensor cores), so it
-// sits far above the bound; wgmma/mma.sync tiles are the later step.  What
-// the design does about the bound:
-//   * one block per (64-row q tile, head, batch), 256 threads, each thread a
-//     4x4 register tile of scores and a 4x(D/16) tile of the output, so each
-//     value read from shared memory feeds four FMAs;
-//   * K and V tiles of 64 rows are staged in shared memory as fp32 (rows of
-//     K and P padded by one float so that a warp's reads hit distinct banks);
-//   * KV tiles wholly past lengths[b] are skipped (their p is exactly 0), so
-//     short clips in a padded batch cost what their length needs;
-//   * q, k and v are read through (batch, row, head) strides, so the packed
-//     entry reads the fused QKV projection output in place, without copies;
-//   * the dropout mask is a hash of the element's coordinates computed in
-//     registers (16 per thread per tile), never a tensor in memory.
+// operations.  Two bodies, chosen at run time by (dtype, D) in dispatch():
+//   * bf16 at D = 64, every training step and bf16 serving on the card:
+//     attention_fwd_wgmma_kernel below, both products on the tensor cores
+//     (989 TFLOP/s bf16).  One warpgroup (128 threads) per (64-row q tile,
+//     head, batch).  The Q tile is resident; K and V tiles stream through a
+//     two-stage ring of 16-byte cp.async into 128-byte-swizzled bf16 tiles,
+//     tile t + 1 loading while tile t is multiplied (wgmma_common.cuh).
+//     S = Q K^T is four wgmma m64n64k16 with both operands K-major; the
+//     online softmax runs on S's accumulator in registers (a row's 64
+//     columns on the four lanes of a quad: the row max and sum take 16 local
+//     values, then two shuffles); the unnormalised p, rounded to bf16 and
+//     dropped where the hash drops it, is packed in place into the A
+//     operand of O += P V, four wgmma with A from registers and V read
+//     MN-major from the tile just landed.  P never goes through shared
+//     memory.  exp is exp2 of (x - m) log2(e); m stays in the units of
+//     scale * s, as the backward bodies read it.
+//   * fp32 (any D) and D = 80 (any dtype): attention_fwd_kernel, fp32 FMA
+//     on the CUDA cores (67 TFLOP/s peak).  fp32 is the path of the card-
+//     vs-CPU checks, which TF32 products would break; no configuration
+//     trains at D = 80 on the card.  256 threads, each a 4x4 register tile
+//     of scores and a 4x(D/16) tile of the output, so each value read from
+//     shared memory feeds four FMAs; K and V tiles of 64 rows staged in
+//     shared memory as fp32 (rows of K and P padded by one float so that a
+//     warp's reads hit distinct banks).
+// Both bodies skip KV tiles wholly past lengths[b] (their p is exactly 0),
+// so short clips in a padded batch cost what their length needs; read q, k
+// and v through (batch, row, head) strides, so the packed entry reads the
+// fused QKV projection output in place, without copies; and compute the
+// dropout mask as a hash of the element's coordinates in registers, never
+// a tensor in memory.
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -202,6 +218,170 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// shared memory of the tensor-core body, bytes: the resident Q tile, the
+// ring of K and V tiles and 1024 bytes of slack to align the base
+constexpr uint32_t kWgFwdSmem = kWgTile + kWgRing + 1024;
+
+// One (64-row q tile, head, batch) on the tensor cores, bf16 at D = 64;
+// arguments as attention_fwd_kernel's.
+__global__ void __launch_bounds__(kWgThreads)
+    attention_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ m_out,
+                               float* __restrict__ l_out,
+                               const int* __restrict__ lengths, int H, int L,
+                               Strides in, Strides os, float scale,
+                               Dropout drop) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t base = (smem_addr(wg_smem) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t ring = base + kWgTile;  // stage s: K at ring + 2 s kWgTile, V after it
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kWgRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  int len = L;
+  if (lengths != nullptr) len = max(0, min(lengths[b], L));
+  // Tiles past the valid keys hold only masked columns: skip them, except
+  // for a row with no valid key, which averages over all of them.
+  const int kv_end = len > 0 ? len : L;
+  const int n_kv = (kv_end + kWgRows - 1) / kWgRows;
+  const bool dropout = drop.seed != nullptr;
+  const unsigned bh_seed = dropout ? dropout_bh_seed(drop.seed, b, h) : 0u;
+
+  const long long ibase = (long long)b * in.batch + (long long)h * in.head;
+  const __nv_bfloat16* kb = k + ibase;
+  const __nv_bfloat16* vb = v + ibase;
+
+  // the first group: Q and the first K, V tile
+  load_tile_async(sQ, q + ibase, in.row, q0, L, tid);
+  load_tile_async(ring, kb, in.row, 0, L, tid);
+  load_tile_async(ring + kWgTile, vb, in.row, 0, L, tid);
+  cp_async_commit();
+
+  // this thread's two rows of every accumulator, and its column pair
+  const int r_lo = 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int cpair = 2 * (tid & 3);
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
+  float s[32], acc[32];
+  zero(s);
+  zero(acc);
+  const uint64_t dQ = desc_k_major(sQ);
+
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {  // stage (t + 1) % 2 was released at the end of t - 1
+      const uint32_t next = ring + ((t + 1) & 1) * 2 * kWgTile;
+      load_tile_async(next, kb, in.row, (t + 1) * kWgRows, L, tid);
+      load_tile_async(next + kWgTile, vb, in.row, (t + 1) * kWgRows, L, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    fence_proxy_async();
+    __syncthreads();
+
+    const uint32_t sK = ring + (t & 1) * 2 * kWgTile, sV = sK + kWgTile;
+    const uint64_t dK = desc_k_major(sK);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, dQ + 2 * kk, dK + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+
+    // the mask, then each row's max over its quad: columns past L do not
+    // exist (excluded); columns past the length get the finite NEG_INF, as
+    // in the Pallas kernels
+    const int kv0 = t * kWgRows;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const int col = kv0 + 8 * j + cpair + e;
+          float x = col < len ? s[i] * scale : kNegInf;
+          x = col < L ? x : -CUDART_INF_F;
+          s[i] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_next = fmaxf(m_r[hh], mx[hh]);  // finite: column 0 < L
+      alpha[hh] = exp2f((m_r[hh] - m_next) * kLog2e);
+      m_r[hh] = m_next;
+    }
+
+    // p = exp(x - m), summed undropped, then dropped and packed in place
+    // into bf16 A pairs (rounded there, as round_to<bf16> rounds it)
+    uint32_t a[16];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float kept[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const unsigned row = q0 + r_lo + 8 * hh;
+          const unsigned col = kv0 + 8 * j + cpair + e;
+          const float p = exp2f((s[i] - m_r[hh]) * kLog2e);
+          sum[hh] += p;
+          kept[e] = dropout && !dropout_keep(bh_seed, row, col, drop.threshold) ? 0.f : p;
+        }
+        a[2 * j + hh] = pack_bf16(kept[0], kept[1]);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      l_r[hh] = alpha[hh] * l_r[hh] + sum[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    wgmma_fence();
+    const uint64_t dVt = desc_mn_major(sV);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+               dVt + 128 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    __syncthreads();  // every thread is done with stage t % 2
+  }
+  cp_async_wait<0>();
+
+  float l_inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l_inv[hh] = (l_r[hh] == 0.f ? 1.f : 1.f / l_r[hh]) * drop.inv_keep;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] *= l_inv[(i >> 1) & 1];
+  const long long obase = (long long)b * os.batch + (long long)h * os.head;
+  store_rows(acc, out + obase, os.row, q0, L, tid);
+  if (m_out != nullptr && (tid & 3) == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r_lo + 8 * hh;
+      if (row >= L) continue;
+      const long long idx = ((long long)b * H + h) * L + row;
+      m_out[idx] = m_r[hh];
+      l_out[idx] = l_r[hh];
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* m, float* l, const int* lengths, int B, int H, int L,
@@ -220,17 +400,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* out, float* m, float* l, const int* lengths,
-                       int B, int H, int L, Strides in, Strides os,
-                       float scale, Dropout drop, cudaStream_t stream) {
-  switch (D) {
-    // 64: Base and Large (768/12, 1024/16); 80: XLarge (1280/16)
-    case 64: return launch<T, 64>(q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream);
-    case 80: return launch<T, 80>(q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, float* m, float* l, const int* lengths,
+                         int B, int H, int L, Strides in, Strides os,
+                         float scale, Dropout drop, cudaStream_t stream) {
+  auto kernel = attention_fwd_wgmma_kernel;
+  static bool configured = false;
+  cudaError_t err = allow_smem(kernel, kWgFwdSmem, &configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + kWgRows - 1) / kWgRows, H, B);
+  kernel<<<grid, kWgThreads, kWgFwdSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), m,
+      l, lengths, H, L, in, os, scale, drop);
+  return cudaGetLastError();
 }
 
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
@@ -239,10 +422,23 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
                      Strides os, float scale, Dropout drop,
                      cudaStream_t stream) {
   if (B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream);
+  if (dtype == 1 && D == 64) {  // the tensor-core body, or an error
+    const void* ptrs[] = {q, k, v, out};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    if (!rows_of_8(in) || !rows_of_8(os)) return cudaErrorMisalignedAddress;
+    return launch_wgmma(q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream);
+  }
+#define DPH_FWD_CASE(T, DD) \
+  return launch<T, DD>(q, k, v, out, m, l, lengths, B, H, L, in, os, scale, drop, stream)
+  // 64: Base and Large (768/12, 1024/16); 80: XLarge (1280/16)
+  if (dtype == 0) {
+    if (D == 64) DPH_FWD_CASE(float, 64);
+    if (D == 80) DPH_FWD_CASE(float, 80);
+  } else if (dtype == 1) {
+    if (D == 80) DPH_FWD_CASE(__nv_bfloat16, 80);
+  }
+#undef DPH_FWD_CASE
   return cudaErrorInvalidValue;
 }
 

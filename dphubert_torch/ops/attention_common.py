@@ -169,10 +169,10 @@ def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate:
     return dq, dk, dv, dbias, dgate
 
 
-def backward_body(dtype: torch.dtype, head_dim: int) -> str:
-    """Which body ``csrc/attention_bwd.cu`` runs for the packed and flash
-    backward entries: "wgmma" (tensor cores) for bf16 at head_dim 64, "fma"
-    (fp32 on the CUDA cores) otherwise."""
+def kernel_body(dtype: torch.dtype, head_dim: int) -> str:
+    """Which body the packed and flash entries of ``csrc/attention_fwd.cu``
+    and ``csrc/attention_bwd.cu`` run: "wgmma" (tensor cores) for bf16 at
+    head_dim 64, "fma" (fp32 on the CUDA cores) otherwise."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "fma"
 
 

@@ -1,23 +1,29 @@
-"""The dropout mask read back out of the attention backward entries.
+"""The dropout mask read back out of the attention forward and backward
+entries.
 
-With chosen inputs the gradients that ``packed_attention_bwd_dq`` / ``_dkv``
-and ``flash_attention_bwd_dq`` / ``_dkv`` return are integers whose bits are
-the keep mask the kernel drew at each (batch, head, row, column), so a test
-can hold the kernels' device hash, at every accumulator element's (row,
+With chosen inputs the output of ``packed_attention`` / ``flash_attention``
+and the gradients that ``packed_attention_bwd_dq`` / ``_dkv`` and
+``flash_attention_bwd_dq`` / ``_dkv`` return are integers whose bits are the
+keep mask the kernel drew at each (batch, head, row, column), so a test can
+hold the kernels' device hash, at every accumulator element's (row,
 column), bit for bit against the plain mask (``dropout_keep_mask``).  The
 tests run it on the CPU (plain versions) and on the card, and
-``chip_smoke.py`` runs it on the card through both backward bodies.
+``chip_smoke.py`` runs it on the card through both bodies of each entry.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
 from .attention_common import dropout_keep_mask
-from .flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq
-from .packed_attention import packed_attention_bwd_dkv, packed_attention_bwd_dq
+from .flash_attention import flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq
+from .packed_attention import (
+    packed_attention,
+    packed_attention_bwd_dkv,
+    packed_attention_bwd_dq,
+)
 
 
 def _coded(L, D, device):
@@ -26,6 +32,46 @@ def _coded(L, D, device):
     x = torch.zeros(L, D, device=device)
     x[j, j % D] = 2.0 ** (j // D).float()
     return x
+
+
+def forward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterable[int],
+                         B: int = 2, H: int = 12, L: int = 200, D: int = 64,
+                         rate: float = 0.1) -> List[Tuple[int, torch.Tensor, torch.Tensor,
+                                                          Optional[torch.Tensor]]]:
+    """The dropout mask read out of the forward entry of ``layout``
+    ("packed" or "flash"): with q = k = 0 every key gets the same weight,
+    and value row j holds 2**(j // D) in column j % D, so out * L * keep is
+    the integer sum_blk keep(i, blk * D + d) * 2**blk, whose bits are row i
+    of the mask.  In bf16 the codes survive the output's rounding while
+    they stay below 2**4 (L <= 4 D).  Returns [(seed, got, want, l)] with
+    (B, H, L, L) boolean masks and, for flash, the row sums l (L for every
+    row: l is the undropped sum), None for packed."""
+    keep = 1.0 - rate
+    j = torch.arange(L, device=device)
+    v1 = _coded(L, D, device)
+    if layout == "packed":
+        v = v1.repeat(1, H).expand(B, L, H * D).contiguous().to(dtype)
+    else:
+        v = v1.expand(B, H, L, D).contiguous().to(dtype)
+    qk = torch.zeros_like(v)
+    b = torch.arange(B, device=device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device).view(1, H, 1, 1)
+    found = []
+    for seed in seeds:
+        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
+        l = None
+        with torch.no_grad():
+            if layout == "packed":
+                out = packed_attention(qk, qk, v, None, num_heads=H, dropout_rate=rate,
+                                       seed=t_seed)
+                out = out.view(B, L, H, D).transpose(1, 2)
+            else:
+                out, _, l = flash_attention(qk, qk, v, None, dropout_rate=rate, seed=t_seed)
+        code = torch.round(out.double() * L * keep).long()
+        got = ((code[..., j % D] >> (j // D)) & 1).bool()
+        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
+        found.append((seed, got, want, l))
+    return found
 
 
 def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterable[int],

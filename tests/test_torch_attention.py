@@ -21,6 +21,8 @@ from dphubert_torch.ops.attention_common import (
     dropout_keep_mask,
     dropout_threshold,
     keep_mask,
+    kernel_body,
+    softmax_parts,
 )
 from dphubert_torch.ops.flash_attention import (
     FlashAttentionFn,
@@ -31,9 +33,10 @@ from dphubert_torch.ops.flash_attention import (
     flash_attention_qkv,
     flash_attention_reference,
 )
-from dphubert_torch.ops.mask_readout import backward_mask_readout
+from dphubert_torch.ops.mask_readout import backward_mask_readout, forward_mask_readout
 from dphubert_torch.ops.packed_attention import (
     PackedAttentionFn,
+    _launch_fwd,
     packed_attention,
     packed_attention_bwd_dkv,
     packed_attention_bwd_dq,
@@ -433,35 +436,37 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in full fp32
 
 
+def _assert_close(got, want, rel, what):
+    """max abs error <= rel * max |want|"""
+    err = (got.float() - want.float()).abs().max().item()
+    bound = rel * want.float().abs().max().item()
+    assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+
+# (dtype, L): fp32 at L = 130 (three 64-row tiles), bf16 at L = 200 (the
+# codes stay below 2**4, so they survive the bf16 output)
+FORWARD_READOUT_CASES = [(torch.float32, 130), (torch.bfloat16, 200)]
+
+
+@pytest.mark.parametrize("dtype,L", FORWARD_READOUT_CASES)
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
-def test_dropout_mask_read_out_of_the_forward(device):
+def test_dropout_mask_read_out_of_the_forward(device, dtype, L):
     """The forward's dropout mask, bit for bit the plain mask, for a
-    negative seed and the int32 extremes; on the card that is the device
-    hash of csrc/attention_common.cuh inside the packed forward kernel.
-    With q = k = 0 every key gets the same weight, and value row j holds
-    2**(j // D) in column j % D, so out * L * keep is the integer
-    sum_blk keep(i, blk * D + d) * 2**blk: its bits are the mask.  L = 130
-    spans three 64-row tiles."""
+    negative seed and the int32 extremes (``forward_mask_readout``: q = k
+    = 0 and value row j holding 2**(j // D) in column j % D, so out * L *
+    keep is an integer whose bits are the mask); on the card that is the
+    device hash of csrc/attention_common.cuh inside the packed forward,
+    through the fp32 CUDA-core body and, in bf16, at every accumulator
+    element's (row, column) of the tensor-core body, where a wrong fragment
+    map flips bits."""
     if device == "cuda":
         _card()
-    B, H, L, D, rate = 2, 12, 130, 64, 0.1
-    keep = 1.0 - rate
-    j = torch.arange(L, device=device)
-    v1 = torch.zeros(L, D, device=device)
-    v1[j, j % D] = 2.0 ** (j // D).float()
-    v = v1.repeat(1, H).expand(B, L, H * D).contiguous()
-    qk = torch.zeros_like(v)
-    b = torch.arange(B, device=device).view(B, 1, 1, 1)
-    h = torch.arange(H, device=device).view(1, H, 1, 1)
-    for seed in (-123456789, 2**31 - 1, -2**31):
-        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
-        with torch.no_grad():
-            out = packed_attention(qk, qk, v, None, num_heads=H, dropout_rate=rate, seed=t_seed)
-        code = torch.round(out.view(B, L, H, D).transpose(1, 2).double() * L * keep).long()
-        got = (code[..., j % D] >> (j // D)) & 1
-        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
-        assert torch.equal(got.bool(), want)
+    n = packed_attention.launches
+    seeds = (-123456789, 2**31 - 1, -2**31)
+    for seed, got, want, _ in forward_mask_readout("packed", device, dtype, seeds, L=L):
+        assert torch.equal(got, want), f"seed {seed}: {(got != want).sum().item()} bits"
         assert 0.85 < want.float().mean().item() < 0.95
+    assert packed_attention.launches == n + (len(seeds) if device == "cuda" else 0)
 
 
 @pytest.mark.gpu
@@ -483,14 +488,9 @@ def test_backward_kernels_match_plain_versions_on_card(dtype, rel, lengths, rate
     seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
     kw = dict(num_heads=H, scale=D ** -0.5, dropout_rate=rate, seed=seed)
 
-    def close(got, want, what):
-        err = (got.float() - want.float()).abs().max().item()
-        bound = rel * want.float().abs().max().item()
-        assert err <= bound, f"{what}: max abs err {err} > {bound}"
-
     with torch.no_grad():
         out = packed_attention(q, k, v, lens, **kw)
-        close(out, packed_attention_reference(q, k, v, lens, **kw), "out")
+        _assert_close(out, packed_attention_reference(q, k, v, lens, **kw), rel, "out")
     counts = (packed_attention.launches, packed_attention_bwd_dq.launches,
               packed_attention_bwd_dkv.launches)
     x = qkv.clone().requires_grad_()
@@ -501,7 +501,7 @@ def test_backward_kernels_match_plain_versions_on_card(dtype, rel, lengths, rate
     torch.testing.assert_close(y.detach(), out, atol=0, rtol=0)
     want = packed_attention_bwd_reference(q, k, v, out, dout, lens, **kw)
     for name, got, w in zip("qkv", x.grad.split(H * D, dim=-1), want):
-        close(got, w, f"d{name}")
+        _assert_close(got, w, rel, f"d{name}")
     # deterministic: no atomics, so a second backward is bit-identical
     x2 = qkv.clone().requires_grad_()
     packed_attention_qkv(x2, lens, **kw).backward(dout)
@@ -562,32 +562,112 @@ def test_kernels_match_plain_versions_on_card(dtype, atol):
         packed_attention(qg, kg, vg, lens, num_heads=H)
 
 
+def test_kernel_body_is_the_tensor_core_one_for_bf16_at_head_dim_64():
+    """The rows and tests name the body an entry ran: the tensor-core
+    (wgmma) bodies of attention_fwd.cu and attention_bwd.cu take bf16 at
+    head_dim 64, the CUDA-core (fma) bodies fp32 and head_dim 80."""
+    assert kernel_body(torch.bfloat16, 64) == "wgmma"
+    for dtype, head_dim in ((torch.float32, 64), (torch.float32, 80), (torch.bfloat16, 80)):
+        assert kernel_body(dtype, head_dim) == "fma"
+
+
+def _assert_stats(m, l, want_m, want_l):
+    """m within 1e-4 absolute, l within 1e-4 relative of the plain softmax's."""
+    assert (m - want_m).abs().max().item() <= 1e-4
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths,rate", [(None, 0.1), ([333, 200, 0], 0.0), ([333, 64, 1], 0.1)])
+def test_wgmma_forward_matches_plain_version_on_card(lengths, rate):
+    """The packed forward's tensor-core body (bf16, head_dim 64) on views of
+    a fused QKV tensor, L = 333 ending mid-tile, a row of length 0 (v
+    averaged over all L) and of length 1: out within 2e-2 x max |plain|, m
+    and l within 1e-4 of the plain softmax's; the serving call (no m, l)
+    gives the same bits, and so does a rerun."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, L, H, D = 3, 333, 12, 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.split(H * D, dim=-1)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([-77], dtype=torch.int32, device="cuda")
+    scale = D ** -0.5
+    kw = dict(num_heads=H, scale=scale, dropout_rate=rate, seed=seed)
+    with torch.no_grad():
+        n = packed_attention.launches
+        out, m, l = _launch_fwd(q, k, v, lens, seed, H, scale, rate, stats=True)
+        _assert_close(out, packed_attention_reference(q, k, v, lens, **kw), 2e-2, "out")
+        heads = lambda t: t.view(B, L, H, D).transpose(1, 2)  # noqa: E731
+        _, want_m, want_l, _ = softmax_parts(heads(q), heads(k), lens, scale)
+        _assert_stats(m, l, want_m[..., 0], want_l[..., 0])
+        assert torch.equal(packed_attention(q, k, v, lens, **kw), out)
+        again, m2, l2 = _launch_fwd(q, k, v, lens, seed, H, scale, rate, stats=True)
+        assert torch.equal(again, out) and torch.equal(m2, m) and torch.equal(l2, l)
+        assert packed_attention.launches == n + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,lengths,rate", [(11, None, 0.1), (9, [333, 200, 0], 0.0),
+                                            (9, [333, 64, 1], 0.1)])
+def test_flash_wgmma_forward_matches_plain_version_on_card(H, lengths, rate):
+    """The flash forward's tensor-core body on (B, H, L, D) views of a fused
+    QKV tensor with 11 and 9 heads (row strides of 2112 and 1728 elements,
+    as the pruned students' layers): out within 2e-2 x max |plain|, m and l
+    within 1e-4; a rerun gives the same bits."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, L, D = 3, 333, 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = (t.view(B, L, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([31337], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=seed)
+    with torch.no_grad():
+        out, m, l = flash_attention(q, k, v, lens, **kw)
+        want, want_m, want_l = flash_attention_reference(q, k, v, lens, **kw)
+        _assert_close(out, want, 2e-2, "out")
+        _assert_stats(m, l, want_m, want_l)
+        again = flash_attention(q, k, v, lens, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, (out, m, l)))
+
+
+@pytest.mark.gpu
+def test_wgmma_forward_refuses_misaligned_views_on_card():
+    """bf16 at head_dim 64 runs the tensor-core body or raises: a view whose
+    pointer is not 16-byte aligned, or whose row stride is not a multiple of
+    8 elements, gets cudaErrorMisalignedAddress (716) from the dispatch, and
+    the wrapper raises without counting a launch."""
+    _card()
+    B, L, H, D = 2, 100, 12, 64
+    HD = H * D
+    shifted = torch.randn(B, L, 3 * HD + 8, device="cuda").to(torch.bfloat16)[..., 4:]
+    odd_rows = torch.randn(B, L, 3 * HD + 4, device="cuda").to(torch.bfloat16)[..., :3 * HD]
+    with torch.no_grad():
+        for qkv in (shifted, odd_rows):
+            q, k, v = qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:3 * HD]
+            n, nf = packed_attention.launches, flash_attention.launches
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                packed_attention(q, k, v, None, num_heads=H)
+            heads = [t.unflatten(-1, (H, D)).transpose(1, 2) for t in (q, k, v)]
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                flash_attention(*heads, None)
+            assert (packed_attention.launches, flash_attention.launches) == (n, nf)
+
+
+@pytest.mark.parametrize("dtype,L", FORWARD_READOUT_CASES)
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
-def test_flash_dropout_mask_read_out_of_the_forward(device):
+def test_flash_dropout_mask_read_out_of_the_forward(device, dtype, L):
     """The flash forward's dropout mask, bit for bit the plain mask, read
     out as in ``test_dropout_mask_read_out_of_the_forward`` on the (B, H, L,
-    D) layout; on the card that is the device hash inside
-    ``flash_attention_fwd``.  L = 130 spans three 64-row tiles."""
+    D) layout with 11 heads; on the card that is the device hash inside
+    ``flash_attention_fwd``'s two bodies.  l is the undropped sum."""
     if device == "cuda":
         _card()
-    B, H, L, D, rate = 2, 11, 130, 64, 0.1
-    keep = 1.0 - rate
-    j = torch.arange(L, device=device)
-    v1 = torch.zeros(L, D, device=device)
-    v1[j, j % D] = 2.0 ** (j // D).float()
-    v = v1.expand(B, H, L, D).contiguous()
-    qk = torch.zeros_like(v)
-    b = torch.arange(B, device=device).view(B, 1, 1, 1)
-    h = torch.arange(H, device=device).view(1, H, 1, 1)
-    for seed in (-123456789, 2**31 - 1, -2**31):
-        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
-        with torch.no_grad():
-            out, _, l = flash_attention(qk, qk, v, None, dropout_rate=rate, seed=t_seed)
-        assert torch.equal(l, torch.full_like(l, float(L)))  # l is the undropped sum
-        code = torch.round(out.double() * L * keep).long()
-        got = (code[..., j % D] >> (j // D)) & 1
-        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
-        assert torch.equal(got.bool(), want)
+    seeds = (-123456789, 2**31 - 1, -2**31)
+    for seed, got, want, l in forward_mask_readout("flash", device, dtype, seeds, H=11, L=L):
+        assert torch.equal(l, torch.full_like(l, float(L)))
+        assert torch.equal(got, want), f"seed {seed}: {(got != want).sum().item()} bits"
         assert 0.85 < want.float().mean().item() < 0.95
 
 
@@ -612,15 +692,10 @@ def test_flash_backward_kernels_match_plain_versions_on_card(dtype, rel, H, leng
     def heads(t):
         return t.view(B, L, H, D).transpose(1, 2)
 
-    def close(got, want, what):
-        err = (got.float() - want.float()).abs().max().item()
-        bound = rel * want.float().abs().max().item()
-        assert err <= bound, f"{what}: max abs err {err} > {bound}"
-
     q, k, v = (heads(t) for t in qkv.split(H * D, dim=-1))
     with torch.no_grad():
         out, _, _ = flash_attention(q, k, v, lens, **kw)
-        close(out, flash_attention_reference(q, k, v, lens, **kw)[0], "out")
+        _assert_close(out, flash_attention_reference(q, k, v, lens, **kw)[0], rel, "out")
     counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
               flash_attention_bwd_dkv.launches)
 
@@ -636,7 +711,7 @@ def test_flash_backward_kernels_match_plain_versions_on_card(dtype, rel, H, leng
     torch.testing.assert_close(y, out.transpose(1, 2).reshape(B, L, H * D), atol=0, rtol=0)
     want = flash_attention_bwd_reference(q, k, v, out, heads(dout).contiguous(), lens, **kw)
     for name, got, w in zip("qkv", g.split(H * D, dim=-1), want):
-        close(heads(got), w, f"d{name}")
+        _assert_close(heads(got), w, rel, f"d{name}")
     assert torch.equal(g, grad()[1])
 
 
@@ -715,16 +790,11 @@ def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_k
     def heads(t):
         return t.view(B, L, H, D).transpose(1, 2)
 
-    def close(got, want, what):
-        err = (got.float() - want.float()).abs().max().item()
-        bound = rel * want.float().abs().max().item()
-        assert err <= bound, f"{what}: max abs err {err} > {bound}"
-
     q, k, v = (heads(t) for t in qkv.split(H * D, dim=-1))
     with torch.no_grad():
         out, m, l = wavlm_attention(q, k, v, bias, gate, lens, block_kv=block_kv, **kw)
         want_out, want_m, want_l = wavlm_attention_reference(q, k, v, bias, gate, lens, **kw)
-        close(out, want_out, "out")
+        _assert_close(out, want_out, rel, "out")
         torch.testing.assert_close(m, want_m, atol=1e-4, rtol=0)
         torch.testing.assert_close(l, want_l, atol=0, rtol=1e-4)
     before = [f.launches for f in WAVLM_KERNELS]
@@ -743,9 +813,9 @@ def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_k
     want = wavlm_attention_bwd_reference(q, k, v, bias, gate, out, heads(dout).contiguous(),
                                          lens, **kw)
     for name, got, w in zip(("dq", "dk", "dv"), gx.split(H * D, dim=-1), want):
-        close(heads(got), w, name)
-    close(gb, want[3], "dbias")
-    close(gg, want[4], "dgate")
+        _assert_close(heads(got), w, rel, name)
+    _assert_close(gb, want[3], rel, "dbias")
+    _assert_close(gg, want[4], rel, "dgate")
     again = grad()
     for name, a, b2 in zip(("dqkv", "dbias", "dgate"), (gx, gb, gg), again[1:]):
         assert torch.equal(a, b2), f"{name}: a second backward differs"

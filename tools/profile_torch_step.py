@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's distill step on one card.
 
-    python3 tools/profile_torch_step.py [--model wavlm_base] [--steps 2] [--out PATH]
+    python3 tools/profile_torch_step.py [--model wavlm_base | --step final_distill]
+                                        [--steps 2] [--out PATH]
 
-Builds the step that ``chip_smoke.py`` drives (teacher ``hubert_base``, or
+Builds a step that ``chip_smoke.py`` drives, with random weights from seeds
+and dropout on: the stage-1 step (teacher ``hubert_base``, or
 ``wavlm_base`` for the DPWavLM step, the student its config with all five
 prune flags, ``DistillConfig`` defaults in bf16, B = 16 clips of 15 s on
-the card, dropout on, random weights from seeds), warms it for two steps,
+the card) or, with ``--step final_distill``, the final-distill step
+(teacher ``hubert_base``, the student ``docs/pruned_config_r2.json`` with
+every attention sublayer on, ``use_reg=False`` in bf16, B = 5 clips of
+249,920 samples: its 11- and 9-head layers take the flash route); warms it
+for two steps,
 then runs ``--steps`` steps under ``torch.profiler`` and prints one JSON object: the wall time of a
 step, the card's busy time in it (the union of the kernels' intervals), and
 the device time of each kernel family and of the top kernels by name.  The
@@ -43,7 +49,7 @@ PRUNE_FLAGS = dict(
 )
 # kernel family by a substring of the kernel's name, first match wins
 FAMILIES = (
-    ("attention (this repo's kernels)", ("attention_fwd_kernel", "attention_bwd_", "wavlm_")),
+    ("attention (this repo's kernels)", ("attention_fwd_", "attention_bwd_", "wavlm_")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
     ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("random numbers", ("distribution", "philox", "random", "bernoulli")),
@@ -75,6 +81,7 @@ def union_us(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("hubert_base", "wavlm_base"), default="hubert_base")
+    ap.add_argument("--step", choices=("stage1", "final_distill"), default="stage1")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_torch_step.json"))
     args = ap.parse_args()
@@ -83,15 +90,26 @@ def main() -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if args.step == "final_distill" and args.model != "hubert_base":
+        ap.error("--step final_distill takes the hubert_base teacher")
     teacher = getattr(pt, args.model)(device="cuda", generator=torch.Generator().manual_seed(0))
-    student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1),
-                                **dict(teacher.config, **PRUNE_FLAGS))
-    cfg = DistillConfig(compute_dtype="bfloat16")
+    if args.step == "stage1":
+        student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1),
+                                    **dict(teacher.config, **PRUNE_FLAGS))
+        cfg = DistillConfig(compute_dtype="bfloat16")
+        shape = [16, 240000]
+    else:
+        config = json.loads((REPO / "docs" / "pruned_config_r2.json").read_text())
+        config["encoder_use_attention"] = [True] * config["encoder_num_layers"]
+        student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(7),
+                                    **config)
+        cfg = DistillConfig(use_reg=False, compute_dtype="bfloat16")
+        shape = [5, 249920]
     state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5)
     del student
     step = make_train_step(teacher, cfg, tx)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    batch = (torch.randn(16, 240000, device="cuda", generator=gen), None)
+    batch = (torch.randn(*shape, device="cuda", generator=gen), None)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
@@ -117,8 +135,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "model": args.model,
-        "steps": args.steps,
-        "batch": [16, 240000], "dtype": "bfloat16",
+        "step": args.step, "steps": args.steps, "batch": shape, "dtype": "bfloat16",
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_ms_per_step": kernel_ms,
