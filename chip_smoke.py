@@ -114,6 +114,7 @@ from dphubert_torch.ops.wavlm_attention import (
     wavlm_attention_fwd,
     wavlm_attention_fwd_general,
     wavlm_attention_reference,
+    wavlm_kernel_body,
     wavlm_route,
 )
 from dphubert_torch.params import unflatten_params
@@ -288,10 +289,16 @@ def dtype_name(dtype) -> str:
 # to align the base: the forward's resident Q tile and a two-stage ring of
 # K and V (csrc/attention_fwd.cu); the backward's two resident tiles, the
 # same ring, and m, l and di of 64 rows (one set in dq, one a stage in dkv;
-# csrc/attention_bwd_wgmma.cuh)
+# csrc/attention_bwd_wgmma.cuh); WavLM's dq and dkv as those with the gate
+# beside m, l and di (dkv also a 64 x 68 fp32 bias tile), and its dbias
+# body's two-stage ring of Q, dO, K, V and the four statistics
+# (csrc/wavlm_attention_wgmma.cuh)
 WGMMA_SMEM_BYTES = {"attention_fwd_wgmma_kernel": 5 * 8192 + 1024,
                     "attention_bwd_dq_wgmma_kernel": 6 * 8192 + 768 + 1024,
-                    "attention_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 768 + 1024}
+                    "attention_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 768 + 1024,
+                    "wavlm_bwd_dq_wgmma_kernel": 6 * 8192 + 1024 + 1024,
+                    "wavlm_bwd_dbias_wgmma_kernel": 2 * (4 * 8192 + 1024) + 1024,
+                    "wavlm_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 1024 + 64 * 68 * 4 + 1024}
 
 
 def _smem_bytes(kernel: str, d: int) -> int:
@@ -323,7 +330,8 @@ def _ptxas(report: str):
                          r"wavlm_bwd_q_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
                          block)
         wgmma = re.search(r"(attention_fwd_wgmma_kernel|attention_bwd_dq_wgmma_kernel|"
-                          r"attention_bwd_dkv_wgmma_kernel)", block)
+                          r"attention_bwd_dkv_wgmma_kernel|wavlm_bwd_dq_wgmma_kernel|"
+                          r"wavlm_bwd_dbias_wgmma_kernel|wavlm_bwd_dkv_wgmma_kernel)", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         if wgmma is not None:
@@ -343,7 +351,9 @@ def _ptxas(report: str):
     return rows
 
 
-SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 20))
+# instantiations per source; wavlm_attention: 19 CUDA-core (the fused body
+# not for bf16 at D = 64) and the three tensor-core bodies
+SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 22))
 
 
 def phase_card() -> str:
@@ -483,15 +493,18 @@ def backward_rows(layout, common, dims, args, kw, outputs, plain_ms, library) ->
 
 def phase_mask_readout(layout: str, path: str) -> None:
     """The dropout mask read out of a layout's backward entries on the card
-    (``backward_mask_readout``: dq, dk and dv, 2 x 12 heads of 64, out = 0),
-    bit for bit, through both bodies: bf16 (wgmma) and fp32 (CUDA cores) at
-    L = 200, fp32 also at the stage-1 L = 749.  Fails on any flipped bit."""
+    (``backward_mask_readout``: dq, dk and dv, and for WavLM's single route
+    dbias, 2 x 12 heads of 64, out = 0), bit for bit, through both bodies:
+    bf16 (wgmma) and fp32 (CUDA cores) at L = 200, fp32 also at the stage-1
+    L = 749.  Fails on any flipped bit."""
     for dtype, L in ((torch.bfloat16, 200), (torch.float32, 200), (torch.float32, 749)):
         found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), L=L)
         flipped = {f"{what} seed {seed}": int((got != want).sum().item())
                    for seed, what, got, want in found}
+        body = (wavlm_kernel_body("wavlm_attention_bwd_fused", dtype, 64) if layout == "wavlm"
+                else kernel_body(dtype, 64))
         row = {"phase": "mask_readout", "entry": "backward", "path": path, "layout": layout,
-               "dtype": dtype_name(dtype), "body": kernel_body(dtype, 64),
+               "dtype": dtype_name(dtype), "body": body,
                "shape_BHLD": [2, 12, L, 64], "flipped_bits": flipped}
         emit(row)
         check(sum(flipped.values()) == 0, f"{layout} backward mask readout: {row}")
@@ -743,29 +756,35 @@ def phase_flash_kernels() -> dict:
     return results
 
 
+def wavlm_flops(kind, B, L, H, D, lengths) -> float:
+    """The operations of one WavLM entry's function on these inputs (not
+    what a body recomputes), per (query, valid key, head): fwd 4*D (QK^T,
+    PV) + 2 (gate * bias); fused 6*D (S, dP, dQ) + 6 (the bias term, ds *
+    bias, gate * ds); dq 6*D + 4; dbias 4*D (S, dP) + 4; dkv 8*D (S, dP,
+    dV, dK) + 2."""
+    ops = {"fwd": 4 * D + 2, "fused": 6 * D + 6, "dq": 6 * D + 4, "dbias": 4 * D + 4,
+           "dkv": 8 * D + 2}[kind]
+    return float(ops) * H * L * sum(_valid_keys(lengths, B, L))
+
+
 def wavlm_bound_ms(kind, B, L, H, D, lengths, dtype):
-    """Least time for one WavLM entry's work on these inputs.  Operations
-    per (query, valid key, head): fwd 4*D (QK^T, PV) + 2 (gate * bias);
-    fused 6*D (S, dP, dQ) + 6 (the bias term, ds * bias, gate * ds); dq
-    6*D + 4; dbias 4*D (S, dP) + 4; dkv 8*D (S, dP, dV, dK) + 2.  Bytes:
-    each input read once (q, out, dout over all rows; k, v over the valid
-    keys; the (H, L, valid) bias; gate, m, l, di) and each output written
-    once (fwd: out, m, l; fused: dq, dgate, dbias, di; dq: dq, dgate, di;
-    dbias: dbias; dkv: dk, dv)."""
+    """Least time for one WavLM entry's work on these inputs:
+    ``wavlm_flops``; bytes: each input read once (q, out, dout over all
+    rows; k, v over the valid keys; the (H, L, valid) bias; gate, m, l, di)
+    and each output written once (fwd: out, m, l; fused: dq, dgate, dbias,
+    di; dq: dq, dgate, di; dbias: dbias; dkv: dk, dv)."""
     es = torch.tensor([], dtype=dtype).element_size()
     kv = _valid_keys(lengths, B, L)
-    pairs = H * L * sum(kv)
     rows, kv_rows = B * L * H * D * es, sum(kv) * H * D * es
     stat, bias = B * H * L * 4, H * L * max(kv) * 4
-    ops_per_pair, nbytes = {
-        "fwd": (4 * D + 2, 2 * rows + 2 * kv_rows + bias + stat + 2 * stat),
-        "fused": (6 * D + 6, 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat
-                  + H * L * L * 4),
-        "dq": (6 * D + 4, 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat),
-        "dbias": (4 * D + 4, 3 * rows + 2 * kv_rows + bias + 3 * stat + H * L * L * 4),
-        "dkv": (8 * D + 2, 2 * rows + 2 * kv_rows + bias + 4 * stat + 2 * kv_rows),
+    nbytes = {
+        "fwd": 2 * rows + 2 * kv_rows + bias + stat + 2 * stat,
+        "fused": 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat + H * L * L * 4,
+        "dq": 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat,
+        "dbias": 3 * rows + 2 * kv_rows + bias + 3 * stat + H * L * L * 4,
+        "dkv": 2 * rows + 2 * kv_rows + bias + 4 * stat + 2 * kv_rows,
     }[kind]
-    return _bound(float(ops_per_pair) * pairs, nbytes + 4 * B, dtype)
+    return _bound(wavlm_flops(kind, B, L, H, D, lengths), nbytes + 4 * B, dtype)
 
 
 def _wavlm_cases(spec):
@@ -800,7 +819,11 @@ def phase_wavlm_kernels(spec) -> dict:
     lengths, forward only.  library = scaled_dot_product_attention with
     the materialised (B, H, L, L) mask gate * bias (+ the key mask), the
     mask built outside the timing; for the backward, its backward with the
-    mask needing a gradient."""
+    mask needing a gradient.  The rows name the body (the single backward
+    pair in bf16: wgmma), the backward rows carry the time without dropout
+    and the achieved TFLOP/s of the entry's function, and every backward
+    entry's rerun must give the same bits.  Then the dropout mask is read
+    out of the single backward pair through both bodies."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(12)
     D = 64
@@ -836,6 +859,7 @@ def phase_wavlm_kernels(spec) -> dict:
                       f"wavlm fwd {label} {dtype} statistics: {stats}")
                 bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
                 row = {"phase": "kernel", "name": "wavlm_attention_fwd", **common,
+                       "body": wavlm_kernel_body("wavlm_attention_fwd", dtype, D),
                        **rel_error(out, want, f"wavlm fwd {label} {dtype}", dtype), **stats,
                        "ms": time_ms(lambda: wavlm_attention_fwd(*args, lengths, **kw)),
                        "plain_ms": time_ms(lambda: wavlm_attention_reference(*args, lengths, **kw),
@@ -868,12 +892,18 @@ def phase_wavlm_kernels(spec) -> dict:
             del x, xm, y
             library = ("scaled_dot_product_attention backward without dropout, the (B, H, L, L) "
                        "mask needing a gradient (dq, dk, dv and dmask together)")
+
+            def call(fn, *di_in):
+                return lambda **o: fn(*args, out, dout, m, l, *di_in, lengths, **{**kw, **o})
+
+            # (name, kind, (output, kernel, plain) pairs, the outputs of its first
+            # call, the call)
             entries = (
                 ("wavlm_attention_bwd_fused", "fused",
                  (("dq", dq, wq), ("dgate", dgate, wgate), ("dbias", dbias, wbias)),
-                 lambda: wavlm_attention_bwd_fused(*args, out, dout, m, l, lengths, **kw)),
-                ("wavlm_attention_bwd_dkv", "dkv", (("dk", dk, wk), ("dv", dv, wv)),
-                 lambda: wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lengths, **kw)),
+                 (dq, dgate, dbias, di), call(wavlm_attention_bwd_fused)),
+                ("wavlm_attention_bwd_dkv", "dkv", (("dk", dk, wk), ("dv", dv, wv)), (dk, dv),
+                 call(wavlm_attention_bwd_dkv, di)),
             )
             general = {}
             if label == "train":
@@ -908,28 +938,36 @@ def phase_wavlm_kernels(spec) -> dict:
                 results[("wavlm_attention_fwd_general", label, dtype)] = row
                 entries += (
                     ("wavlm_attention_bwd_dq", "dq", (("dq", dq_g, wq), ("dgate", dgate_g, wgate)),
-                     lambda: wavlm_attention_bwd_dq(*args, out, dout, m, l, lengths, **kw)),
+                     (dq_g, dgate_g, di_g), call(wavlm_attention_bwd_dq)),
                     ("wavlm_attention_bwd_dbias", "dbias", (("dbias", dbias_g, wbias),),
-                     lambda: wavlm_attention_bwd_dbias(*args, out, dout, m, l, lengths, **kw)),
+                     (dbias_g,), call(wavlm_attention_bwd_dbias)),
                     ("wavlm_attention_bwd_dkv_general", "dkv", (("dk", dk_g, wk), ("dv", dv_g, wv)),
-                     lambda: wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g, lengths,
-                                                             **kw)),
+                     (dk_g, dv_g), call(wavlm_attention_bwd_dkv_general, di_g)),
                 )
-            for name, kind, pairs, run in entries:
+            for name, kind, pairs, first, run in entries:
                 bound, by = wavlm_bound_ms(kind, B, L, H, D, lengths, dtype)
                 with torch.no_grad():
                     ms = time_ms(run)
+                    ms_no_dropout = time_ms(lambda: run(dropout_rate=0.0))
+                    again = run()
+                again = again if isinstance(again, tuple) else (again,)
+                check(all(torch.equal(a, b) for a, b in zip(again, first)),
+                      f"{name} {label} {dtype}: a rerun gave other bits")
                 row = {"phase": "kernel", "name": name, **common,
+                       "body": wavlm_kernel_body(name, dtype, D),
                        **_rel_row(pairs, dtype, f"{name} {label} {dtype}"),
-                       "ms": ms, "plain_ms": plain_ms,
+                       "rerun_bit_identical": True,
+                       "ms": ms, "ms_no_dropout": ms_no_dropout, "plain_ms": plain_ms,
+                       "achieved_tflops": wavlm_flops(kind, B, L, H, D, lengths) / ms / 1e9,
                        "plain": "wavlm_attention_bwd_reference (dq, dk, dv, dbias, dgate together)",
                        "library_ms": library_ms, "library": library,
                        "bound_ms": bound, "bound_by": by}
                 emit(row)
                 results[(name, label, dtype)] = row
             del qkv, dout, bias, gate, mask, out, m, l, want, dq, dk, dv, dgate, dbias, di
-            del wq, wk, wv, wbias, wgate, general
+            del wq, wk, wv, wbias, wgate, general, entries
             torch.cuda.empty_cache()
+    phase_mask_readout("wavlm", "wavlm_train")
     return results
 
 
@@ -1662,9 +1700,12 @@ def main() -> int:
             entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
     check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
-    bodies = {e["name"]: e["body"] for e in line if not e["name"].startswith("wavlm_")}
-    check(set(bodies.values()) == {"wgmma"},
-          f"bf16 bodies of the packed and flash entries: {bodies}")
+    # bf16 on the tensor cores: every packed and flash entry and the WavLM
+    # single route's backward pair
+    bodies = {e["name"]: e["body"] for e in line if not e["name"].startswith("wavlm_")
+              or e["name"] in ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")}
+    check(len(bodies) == 8 and set(bodies.values()) == {"wgmma"},
+          f"bf16 bodies of the packed, flash and WavLM single backward entries: {bodies}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})

@@ -7,7 +7,9 @@
 // B*H*L*L is ever in memory.
 //
 // Replaces the seven Pallas kernels of the TPU package's
-// ops/wavlm_attention.py with three kernel bodies:
+// ops/wavlm_attention.py with three CUDA-core kernel bodies (and, for the
+// single route's backward pair in bf16 at D = 64, the three tensor-core
+// bodies of wavlm_attention_wgmma.cuh: below):
 //   * wavlm_fwd_kernel: _fwd_single_kernel (pallas_call at :216), entry
 //     wavlm_attention_fwd, and _fwd_kernel (:268), entry
 //     wavlm_attention_fwd_general.  out, and the row max m and undropped
@@ -54,9 +56,12 @@
 // reads of q, k, v, dout of the same order as HuBERT's and of the (H, L, L)
 // bias table: at the stage-1 shape (B = 16, L = 749, 12 heads of 64) the
 // operations outweigh the bytes, so the kernels are bound by operations.
-// Like the packed and flash kernels, this first version runs fp32 FMA on the
+// For bf16 at D = 64 (every DPWavLM training step on the card) the single
+// route's backward pair runs on the tensor cores: wavlm_attention_wgmma.cuh,
+// where the fused entry is a dq body (dq, dgate, di) and a dbias body that
+// sums the batch per 64 x 64 tile.  Everything else runs fp32 FMA on the
 // CUDA cores (67 TFLOP/s, not the tensor cores' 989 TFLOP/s in bf16).  What
-// the design does:
+// the CUDA-core design does:
 //   * the forward and dkv bodies are the flash bodies of attention_fwd.cu /
 //     attention_bwd.cu (64x64 score tiles, a 4x4 register tile a thread)
 //     with the bias term added where the scores are formed; the forward
@@ -74,12 +79,14 @@
 //     block per (q tile, head, batch row); the general dbias entry one
 //     block per (q tile, head, KV tile) looping over the batch;
 //   * KV tiles wholly past lengths[b] are skipped (p = 0 there).
-// Limit: the fused entry's strip needs 128 * ceil64(L) bytes of shared
-// memory beside its tiles; past L = 1344 frames (D = 64; 1216 for D = 80)
-// it does not fit, the entry returns cudaErrorInvalidValue, and the
+// Limit: the CUDA-core fused body's strip needs 128 * ceil64(L) bytes of
+// shared memory beside its tiles; past L = 1344 frames (D = 64; 1216 for
+// D = 80) it does not fit, the entry returns cudaErrorInvalidValue, and the
 // wrapper refuses such a call before it launches (the stage-1 step runs at
-// L <= 780).
-#include "attention_common.cuh"
+// L <= 780).  The tensor-core bodies have no such limit.
+#include <type_traits>
+
+#include "wavlm_attention_wgmma.cuh"
 
 namespace {
 
@@ -122,10 +129,6 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     const int r = i / D, c = i % D, row = r0 + r;
     dst[r * (D + 1) + c] = row < L ? to_float(src[row * row_stride + c]) : 0.f;
   }
-}
-
-__device__ __forceinline__ int valid_len(const int* lengths, int b, int L) {
-  return lengths != nullptr ? max(0, min(lengths[b], L)) : L;
 }
 
 // ---------------------------------------------------------------------------
@@ -736,12 +739,55 @@ cudaError_t launch_q(const WArgs& a, cudaStream_t stream) {
 
 enum class Kind { kFwd, kDkv, kFused, kDq, kDbias };
 
+// The single route's backward pair in bf16 at D = 64 (the tensor-core
+// bodies): the fused entry launches the dq body, then the dbias body that
+// reads its di, on one stream; the dkv entry the dkv body.  Blocks are
+// ordered batch-innermost where a block owns one batch row.
+cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int tiles = (a.L + kWgRows - 1) / kWgRows;
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+  cudaError_t err;
+  if (kind == Kind::kDkv) {
+    auto kernel = wavlm_bwd_dkv_wgmma_kernel;
+    static bool configured = false;
+    if ((err = allow_smem(kernel, kWlDkvSmem, &configured)) != cudaSuccess) return err;
+    kernel<<<dim3(a.B, tiles, a.H), kWgThreads, kWlDkvSmem, stream>>>(
+        q, k, v, a.bias, a.gate, dout, a.m, a.l, a.di, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.lengths, a.H, a.L, a.in, a.scale, a.drop);
+    return cudaGetLastError();
+  }
+  auto dq_kernel = wavlm_bwd_dq_wgmma_kernel;
+  static bool dq_configured = false;
+  if ((err = allow_smem(dq_kernel, kWlDqSmem, &dq_configured)) != cudaSuccess) return err;
+  dq_kernel<<<dim3(a.B, tiles, a.H), kWgThreads, kWlDqSmem, stream>>>(
+      q, k, v, a.bias, a.gate, static_cast<const bf16*>(a.out), dout, a.m, a.l, a.di,
+      static_cast<bf16*>(a.dq), a.dgate, a.lengths, a.H, a.L, a.in, a.scale, a.drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  auto dbias_kernel = wavlm_bwd_dbias_wgmma_kernel;
+  static bool dbias_configured = false;
+  if ((err = allow_smem(dbias_kernel, kWlDbiasSmem, &dbias_configured)) != cudaSuccess)
+    return err;
+  dbias_kernel<<<dim3(tiles, tiles, a.H), kWgThreads, kWlDbiasSmem, stream>>>(
+      q, k, v, a.bias, a.gate, dout, a.m, a.l, a.di, a.dbias, a.lengths, a.B, a.H, a.L,
+      a.in, a.scale, a.drop);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 64 takes the fused entry to launch_wgmma (dispatch), so its
+// CUDA-core fused body is not instantiated
+template <typename T, int D>
+constexpr bool kWgmmaPair = std::is_same<T, __nv_bfloat16>::value && D == 64;
+
 template <typename T, int D>
 cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
   switch (kind) {
     case Kind::kFwd: return launch_fwd<T, D>(a, stream);
     case Kind::kDkv: return launch_dkv<T, D>(a, stream);
-    case Kind::kFused: return launch_q<T, D, true, true>(a, stream);
+    case Kind::kFused:
+      if constexpr (!kWgmmaPair<T, D>) return launch_q<T, D, true, true>(a, stream);
+      break;
     case Kind::kDq: return launch_q<T, D, true, false>(a, stream);
     case Kind::kDbias: return launch_q<T, D, false, true>(a, stream);
   }
@@ -751,6 +797,18 @@ cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
 cudaError_t dispatch(Kind kind, int dtype, int D, const WArgs& a,
                      cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.L <= 0) return cudaErrorInvalidValue;
+  const bool single_pair = kind == Kind::kFused || (kind == Kind::kDkv && a.batch_inner);
+  if (dtype == 1 && D == 64 && single_pair) {
+    // the tensor-core bodies copy q, k, v and dout rows (and read out) 16
+    // bytes at a time and write bf16 pairs: other pointers and strides are
+    // refused, never run on the CUDA-core body
+    const bool fused = kind == Kind::kFused;
+    const void* ptrs[] = {a.q, a.k, a.v, a.dout, fused ? a.out : a.dk, fused ? a.dq : a.dv};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    if (!rows_of_8(a.in)) return cudaErrorMisalignedAddress;
+    return launch_wgmma(kind, a, stream);
+  }
   // 64: Base and Large (768/12, 1024/16); 80: XLarge (1280/16)
   if (dtype == 0) {
     if (D == 64) return launch<float, 64>(kind, a, stream);
@@ -895,8 +953,11 @@ int wavlm_attention_bwd_dkv_general(
 // dq (contiguous (B, H, L, D)), dgate ((B, H, L) float32), dbias ((H, L, L)
 // float32) and di ((B, H, L) float32, for wavlm_attention_bwd_dkv), from out
 // and dout (contiguous (B, H, L, D)) and the forward's m and l.  Other
-// arguments as for wavlm_attention_fwd.  cudaErrorInvalidValue when the
-// dbias strip of 32 rows x ceil64(L) does not fit in shared memory.
+// arguments as for wavlm_attention_fwd.  bf16 at D = 64: two launches (dq,
+// then dbias), cudaErrorMisalignedAddress for a pointer that is not 16-byte
+// aligned or a stride that is not a multiple of 8 (as wavlm_attention_bwd_dkv
+// there).  Otherwise cudaErrorInvalidValue when the dbias strip of 32 rows x
+// ceil64(L) does not fit in shared memory.
 int wavlm_attention_bwd_fused(const void* q, const void* k, const void* v,
                               const void* bias, const void* gate,
                               const void* out, const void* dout,

@@ -138,7 +138,8 @@ def attention_bwd_plain(q, k, v, out, dout, lengths, scale: float, dropout_rate:
 
     ``round_operands`` rounds p~ and scale * ds to q's dtype before the
     three products, as the tensor-core kernels of ``csrc/attention_bwd.cu``
-    do with bf16 inputs (their A operands); for fp32 and float64 inputs the
+    and ``csrc/wavlm_attention.cu`` do with bf16 inputs (their A operands);
+    dbias and dgate keep the unrounded ds.  For fp32 and float64 inputs the
     rounding is the identity."""
     acc = acc_dtype(q.dtype)
     p, _, _, l_inv = softmax_parts(q, k, lengths, scale, bias, gate)

@@ -2,13 +2,14 @@
 entries.
 
 With chosen inputs the output of ``packed_attention`` / ``flash_attention``
-and the gradients that ``packed_attention_bwd_dq`` / ``_dkv`` and
-``flash_attention_bwd_dq`` / ``_dkv`` return are integers whose bits are the
-keep mask the kernel drew at each (batch, head, row, column), so a test can
-hold the kernels' device hash, at every accumulator element's (row,
-column), bit for bit against the plain mask (``dropout_keep_mask``).  The
-tests run it on the CPU (plain versions) and on the card, and
-``chip_smoke.py`` runs it on the card through both bodies of each entry.
+and the gradients that ``packed_attention_bwd_dq`` / ``_dkv``,
+``flash_attention_bwd_dq`` / ``_dkv`` and ``wavlm_attention_bwd_fused`` /
+``wavlm_attention_bwd_dkv`` return are integers whose bits are the keep mask
+the kernel drew at each (batch, head, row, column), so a test can hold the
+kernels' device hash, at every accumulator element's (row, column), bit for
+bit against the plain mask (``dropout_keep_mask``).  The tests run it on the
+CPU (plain versions) and on the card, and ``chip_smoke.py`` runs it on the
+card through both bodies of each entry.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .packed_attention import (
     packed_attention_bwd_dkv,
     packed_attention_bwd_dq,
 )
+from .wavlm_attention import wavlm_attention_bwd_dkv, wavlm_attention_bwd_fused
 
 
 def _coded(L, D, device):
@@ -78,19 +80,27 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
                           B: int = 2, H: int = 12, L: int = 200, D: int = 64,
                           rate: float = 0.1) -> List[Tuple[int, str, torch.Tensor, torch.Tensor]]:
     """The dropout mask read out of the dq and dkv entries of ``layout``
-    ("packed" or "flash") in three runs per seed, with out = 0 (so di = 0),
-    no lengths and m = 0, l = L (the statistics of q k^T = 0):
+    ("packed", "flash", or "wavlm": the single route's
+    ``wavlm_attention_bwd_fused`` and ``_dkv`` with a zero bias) in three
+    runs per seed, with out = 0 (so di = 0), no lengths and m = 0, l = L
+    (the statistics of q k^T = 0):
       dq: q = 0 (p = 1/L), k coded, v and dout one-hot in column 0 (dp = 1):
           round(dq L keep / scale) holds row i of the mask in its bits;
       dk: k = 0, q coded, v and dout as above: round(dk L keep / scale)
           holds column j;
       dv: q = k = 0, dout coded: round(dv L keep) holds column j.
+    For "wavlm" the dq run also reads dbias: there s = 0 as well and
+    gate[b] = 2**b, so dbias = sum_b 2**b keep_b / (L keep), and
+    round(dbias L keep) holds the masks of every batch row (b < 24) at every
+    (h, i, j): the fp32 ds that dbias sums, at each accumulator element.
     Returns [(seed, what, got, want)] with (B, H, L, L) boolean masks."""
     keep = 1.0 - rate
     scale = D ** -0.5
     zero, coded = torch.zeros(L, D, device=device), _coded(L, D, device)
     onehot = torch.zeros(L, D, device=device)
     onehot[:, 0] = 1.0
+    m = torch.zeros(B, H, L, device=device)
+    l = torch.full((B, H, L), float(L), device=device)
     if layout == "packed":
         def full(x):
             return x.repeat(1, H).expand(B, L, H * D).contiguous().to(dtype)
@@ -98,7 +108,12 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
         def heads(t):
             return t.view(B, L, H, D).transpose(1, 2)
 
-        dq_fn, dkv_fn, kw = packed_attention_bwd_dq, packed_attention_bwd_dkv, dict(num_heads=H)
+        def backward(q, k, v, dout, **kw):
+            dq, di = packed_attention_bwd_dq(q, k, v, torch.zeros_like(q), dout, m, l, None,
+                                             num_heads=H, **kw)
+            dk, dv = packed_attention_bwd_dkv(q, k, v, torch.zeros_like(q), dout, m, l, di,
+                                              None, num_heads=H, **kw)
+            return {"dq": dq, "dk": dk, "dv": dv}
     else:
         def full(x):
             return x.expand(B, H, L, D).contiguous().to(dtype)
@@ -106,9 +121,22 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
         def heads(t):
             return t
 
-        dq_fn, dkv_fn, kw = flash_attention_bwd_dq, flash_attention_bwd_dkv, {}
-    m = torch.zeros(B, H, L, device=device)
-    l = torch.full((B, H, L), float(L), device=device)
+        if layout == "flash":
+            def backward(q, k, v, dout, **kw):
+                zeros = torch.zeros_like(q)
+                dq, di = flash_attention_bwd_dq(q, k, v, zeros, dout, m, l, None, **kw)
+                dk, dv = flash_attention_bwd_dkv(q, k, v, zeros, dout, m, l, di, None, **kw)
+                return {"dq": dq, "dk": dk, "dv": dv}
+        else:
+            bias = torch.zeros(H, L, L, device=device)
+            gate = (2.0 ** torch.arange(B, device=device).float()).view(B, 1, 1).expand(
+                B, H, L).contiguous()
+
+            def backward(q, k, v, dout, **kw):
+                args = (q, k, v, bias, gate, torch.zeros_like(q), dout, m, l)
+                dq, _, dbias, di = wavlm_attention_bwd_fused(*args, None, **kw)
+                dk, dv = wavlm_attention_bwd_dkv(*args, di, None, **kw)
+                return {"dq": dq, "dk": dk, "dv": dv, "dbias": dbias}
     b = torch.arange(B, device=device).view(B, 1, 1, 1)
     h = torch.arange(H, device=device).view(1, H, 1, 1)
     j = torch.arange(L, device=device)
@@ -120,13 +148,14 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
         t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
         want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
         for what, (q, k, v, dout, factor) in runs.items():
-            q, k, v, dout = (full(x) for x in (q, k, v, dout))
-            args = dict(scale=scale, dropout_rate=rate, seed=t_seed, **kw)
             with torch.no_grad():
-                dq, di = dq_fn(q, k, v, torch.zeros_like(q), dout, m, l, None, **args)
-                dk, dv = dkv_fn(q, k, v, torch.zeros_like(q), dout, m, l, di, None, **args)
-            grad = heads({"dq": dq, "dk": dk, "dv": dv}[what]).double()
-            code = torch.round(grad * (L * keep * factor)).long()
+                grads = backward(*(full(x) for x in (q, k, v, dout)), scale=scale,
+                                 dropout_rate=rate, seed=t_seed)
+            code = torch.round(heads(grads[what]).double() * (L * keep * factor)).long()
             got = ((code[..., j % D] >> (j // D)) & 1).bool()
             found.append((seed, what, got, want if what == "dq" else want.transpose(-1, -2)))
+            if "dbias" in grads and what == "dq":
+                code = torch.round(grads["dbias"].double() * (L * keep)).long()
+                got = ((code[None] >> b) & 1).bool()
+                found.append((seed, "dbias", got, want))
     return found

@@ -20,6 +20,10 @@ Seven kernel wrappers, each beside its plain version, launch the entries of
   and dgate), ``wavlm_attention_bwd_dbias`` and
   ``wavlm_attention_bwd_dkv_general``.
 
+For bf16 at head_dim 64 the single route's backward pair runs on the
+tensor cores (``csrc/wavlm_attention_wgmma.cuh``; ``wavlm_kernel_body``
+names the body an entry runs).
+
 The plain versions are ``wavlm_attention_reference`` and
 ``wavlm_attention_bwd_reference``.  Each wrapper runs the plain version on
 CPU tensors and launches its kernel on CUDA tensors or raises; each counts
@@ -54,20 +58,32 @@ from .attention_common import (
     dropout_args,
     forward_only,
     keep_mask,
+    kernel_body,
     softmax_parts,
     stream,
 )
 
 LANES = 128
-# the fused backward keeps a (32 x ceil64(L)) fp32 strip of dbias in shared
-# memory beside its tiles (csrc/wavlm_attention.cu: q_smem_floats); the
-# H100's 227 KB per block hold it up to these lengths
+# the fused backward's CUDA-core body keeps a (32 x ceil64(L)) fp32 strip of
+# dbias in shared memory beside its tiles (csrc/wavlm_attention.cu:
+# q_smem_floats); the H100's 227 KB per block hold it up to these lengths
 _SMEM_FLOATS = 232448 // 4
+# the entries whose bf16, head_dim 64 calls run the tensor-core bodies
+_WGMMA_ENTRIES = ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
+
+
+def wavlm_kernel_body(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which body the WavLM entry ``name`` of ``csrc/wavlm_attention.cu``
+    runs: "wgmma" (tensor cores, ``wavlm_attention_wgmma.cuh``) for the
+    single route's backward pair in bf16 at head_dim 64, "fma" (fp32 on the
+    CUDA cores) for every other entry, dtype and width."""
+    return kernel_body(dtype, head_dim) if name in _WGMMA_ENTRIES else "fma"
 
 
 def fused_max_len(head_dim: int) -> int:
-    """The longest L whose dbias strip fits the fused backward's shared
-    memory on an H100 (1344 frames for head_dim 64, 1216 for 80)."""
+    """The longest L whose dbias strip fits the shared memory of the fused
+    backward's CUDA-core body on an H100 (1344 frames for head_dim 64, 1216
+    for 80); its tensor-core body (bf16 at head_dim 64) has no limit."""
     tiles = 2 * 32 * (head_dim + 1) + 2 * 64 * (head_dim + 1) + 32 * 65 + 4 * 32
     width = (_SMEM_FLOATS - tiles) // 32 - 8
     return width // 64 * 64
@@ -119,11 +135,15 @@ def wavlm_attention_bwd_reference(
     dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
 ):
     """Plain version of the backward: (dq, dk, dv) in q's dtype and (dbias,
-    dgate) in fp32 (``attention_common.attention_bwd_plain``)."""
+    dgate) in fp32 (``attention_common.attention_bwd_plain``).  For bf16
+    inputs p~ and scale * ds are rounded to bf16 before the dV, dK and dQ
+    products, as the tensor-core kernels' A operands are; dgate and dbias
+    come from the unrounded ds."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     dq, dk, dv, dbias, dgate = attention_bwd_plain(q, k, v, out, dout, lengths, scale,
-                                                   dropout_rate, seed, bias, gate)
+                                                   dropout_rate, seed, bias, gate,
+                                                   round_operands=True)
     acc = acc_dtype(bias.dtype)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias.to(acc), dgate.to(acc)
 
@@ -300,7 +320,8 @@ def _q_side(name, q, k, v, bias, gate, out, dout, m, l, lengths, scale, dropout_
     _check(q, k, v, bias, gate, lengths, seed, dropout_rate)
     _check_stats(q, out, dout, (("m", m), ("l", l)))
     B, H, L, D = q.shape
-    if want_dq and want_dbias and L > fused_max_len(D):
+    if (want_dq and want_dbias and L > fused_max_len(D)
+            and wavlm_kernel_body(name, q.dtype, D) == "fma"):
         raise ValueError(
             f"the fused WavLM backward holds a 32 x {_ceil_to(L, 64)} dbias strip in shared "
             f"memory; L = {L} exceeds its {fused_max_len(D)} frames (pass block_kv to take "

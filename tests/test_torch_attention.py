@@ -18,6 +18,7 @@ import torch
 from dphubert_torch.configs import AttentionSpec
 from dphubert_torch.models.components import SelfAttention, attention_route
 from dphubert_torch.ops.attention_common import (
+    NEG_INF,
     dropout_keep_mask,
     dropout_threshold,
     keep_mask,
@@ -57,6 +58,7 @@ from dphubert_torch.ops.wavlm_attention import (
     wavlm_attention_fwd_general,
     wavlm_attention_qkv,
     wavlm_attention_reference,
+    wavlm_kernel_body,
 )
 
 
@@ -243,6 +245,49 @@ def test_plain_backward_rounds_p_and_ds_to_bf16():
         if dtype == torch.bfloat16:  # the rounding shows in the results
             unrounded = torch.matmul(p_used.transpose(-1, -2), f(do)).to(dtype)
             assert not torch.equal(got[2], unrounded)
+
+
+def test_wavlm_plain_backward_rounds_p_and_ds_to_bf16():
+    """bf16 inputs: the WavLM plain backward rounds p~ and scale * ds to
+    bf16 before the dV, dK and dQ products, as the tensor-core kernels' A
+    operands are, while dgate = sum_j ds * bias and dbias = sum_b gate * ds
+    come from the unrounded fp32 ds, as the kernels sum them; fp32 inputs
+    are not rounded.  Pinned bit for bit against the formulas written out
+    here, with the gated bias in the scores, lengths and dropout on."""
+    rng = np.random.default_rng(6)
+    B, H, L, D, rate, scale = 2, 2, 33, 16, 0.1, 0.25
+    seed = torch.tensor([-909], dtype=torch.int32)
+    lens = torch.tensor([33, 20], dtype=torch.int32)
+    inv_keep = 1.0 / (1.0 - rate)
+    bias = torch.from_numpy(rng.standard_normal((H, L, L)).astype(np.float32))
+    gate = torch.from_numpy(rng.uniform(0.5, 2.0, (B, H, L)).astype(np.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, out, do = (torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32))
+                            .to(dtype) for _ in range(5))
+        f = lambda t: t.float()  # noqa: E731
+        s = torch.matmul(f(q), f(k).transpose(-1, -2)) * scale + gate[..., None] * bias[None]
+        valid = torch.arange(L)[None, :] < lens[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+        keep = keep_mask(seed, rate, B, H, L, "cpu")
+        p_used = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, torch.matmul(f(do), f(v).transpose(-1, -2)) * inv_keep, 0.0)
+        ds = p * (dp - (f(out) * f(do)).sum(dim=-1, keepdim=True))
+        ds_r, p_r = (ds * scale).to(dtype).float(), p_used.to(dtype).float()
+        want = [torch.matmul(ds_r, f(k)), torch.matmul(ds_r.transpose(-1, -2), f(q)),
+                torch.matmul(p_r.transpose(-1, -2), f(do))]
+        want_dbias = (gate[..., None] * ds).sum(dim=0)
+        want_dgate = (ds * bias[None]).sum(dim=-1)
+        got = wavlm_attention_bwd_reference(q, k, v, bias, gate, out, do, lens, scale=scale,
+                                            dropout_rate=rate, seed=seed)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g, w.to(dtype), atol=0, rtol=0, msg=name)
+        torch.testing.assert_close(got[3], want_dbias, atol=0, rtol=0, msg="dbias")
+        torch.testing.assert_close(got[4], want_dgate, atol=0, rtol=0, msg="dgate")
+        if dtype == torch.bfloat16:  # the rounding shows, and dbias/dgate do not take it
+            assert not torch.equal(got[2], torch.matmul(p_used.transpose(-1, -2), f(do)).to(dtype))
+            assert not torch.equal(got[3], (gate[..., None] * ds_r / scale).sum(dim=0))
 
 
 def test_dropout_threshold_is_truncated_from_a_double():
@@ -510,22 +555,28 @@ def test_backward_kernels_match_plain_versions_on_card(dtype, rel, lengths, rate
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
-@pytest.mark.parametrize("layout", ["packed", "flash"])
+@pytest.mark.parametrize("layout", ["packed", "flash", "wavlm"])
 def test_dropout_mask_read_out_of_the_backward(layout, device, dtype):
     """The backward entries' dropout mask, bit for bit the plain mask, for
-    a negative seed and the int32 extremes, read out of dq, dk and dv as in
+    a negative seed and the int32 extremes, read out of dq, dk and dv (and,
+    for WavLM's single route, dbias: every batch row's mask) as in
     ``backward_mask_readout``; on the card that is the device hash at each
     accumulator element's (row, column) inside the bf16 tensor-core bodies
-    and the fp32 CUDA-core ones, so a wrong fragment map flips bits.  L =
-    200 ends mid-tile (3 x 64 + 8); in bf16 the codes (< 2**4) survive the
-    roundings of p~, ds and the output."""
+    (WavLM's dq, dbias and dkv bodies among them) and the fp32 CUDA-core
+    ones, so a wrong fragment map flips bits.  L = 200 ends mid-tile (3 x
+    64 + 8); in bf16 the codes (< 2**4) survive the roundings of p~, ds and
+    the output."""
     if device == "cuda":
         _card()
-    fns = ((packed_attention_bwd_dq, packed_attention_bwd_dkv) if layout == "packed"
-           else (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+    fns = {"packed": (packed_attention_bwd_dq, packed_attention_bwd_dkv),
+           "flash": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
+           "wavlm": (wavlm_attention_bwd_fused, wavlm_attention_bwd_dkv)}[layout]
     before = [f.launches for f in fns]
     seeds = (-123456789, 2**31 - 1, -2**31)
-    for seed, what, got, want in backward_mask_readout(layout, device, dtype, seeds):
+    found = backward_mask_readout(layout, device, dtype, seeds)
+    assert [w for _, w, _, _ in found] == (["dq", "dbias", "dk", "dv"] if layout == "wavlm"
+                                           else ["dq", "dk", "dv"]) * len(seeds)
+    for seed, what, got, want in found:
         assert torch.equal(got, want), f"{what}, seed {seed}: {(got != want).sum().item()} bits"
         assert 0.85 < want.float().mean().item() < 0.95
     n = 3 * len(seeds) if device == "cuda" else 0
@@ -569,6 +620,19 @@ def test_kernel_body_is_the_tensor_core_one_for_bf16_at_head_dim_64():
     assert kernel_body(torch.bfloat16, 64) == "wgmma"
     for dtype, head_dim in ((torch.float32, 64), (torch.float32, 80), (torch.bfloat16, 80)):
         assert kernel_body(dtype, head_dim) == "fma"
+
+
+def test_wavlm_kernel_body_is_the_tensor_core_one_for_the_single_backward_pair():
+    """Of the seven WavLM entries only the single route's backward pair
+    (wavlm_attention_bwd_fused and _dkv) has tensor-core bodies, taken for
+    bf16 at head_dim 64; the forwards and the general route's entries, and
+    the pair in fp32 or at head_dim 80, run the CUDA-core bodies."""
+    pair = ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
+    for fn in WAVLM_KERNELS:
+        name = fn.__name__
+        assert wavlm_kernel_body(name, torch.bfloat16, 64) == ("wgmma" if name in pair else "fma")
+        for dtype, head_dim in ((torch.float32, 64), (torch.float32, 80), (torch.bfloat16, 80)):
+            assert wavlm_kernel_body(name, dtype, head_dim) == "fma"
 
 
 def _assert_stats(m, l, want_m, want_l):
@@ -764,21 +828,23 @@ WAVLM_KERNELS = (wavlm_attention_fwd, wavlm_attention_bwd_fused, wavlm_attention
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("block_kv", [None, 128])
-@pytest.mark.parametrize("H,lengths,rate", [(12, None, 0.1), (7, [333, 200, 1], 0.0),
-                                            (7, [333, 64, 130], 0.1)])
-def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_kv, H, lengths,
-                                                             rate):
+@pytest.mark.parametrize("B,L,H,lengths,rate", [
+    (3, 333, 12, None, 0.1), (3, 333, 7, [333, 200, 1], 0.0), (3, 333, 7, [333, 64, 130], 0.1),
+    (2, 749, 12, None, 0.1), (2, 780, 12, None, 0.1),  # the DPWavLM steps' lengths
+])
+def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_kv, B, L, H,
+                                                             lengths, rate):
     """The WavLM forward with dropout and its route's backward kernels
-    (single: fused dq/dgate/dbias and dkv; general, block_kv 128: dq/dgate,
-    dbias and dkv) against their plain versions, through WavLMAttentionFn
-    on (B, H, L, D) views of a fused QKV tensor with fp32 bias and gate
-    needing gradients, with the launch counts.  A second backward is
-    bit-identical: no float atomics, dbias summed over the batch in one
-    block.  Bound: max abs error <= rel * max |plain| for out, dq, dk, dv,
-    dgate and dbias."""
+    (single: fused dq/dgate/dbias and dkv, in bf16 the tensor-core bodies;
+    general, block_kv 128: dq/dgate, dbias and dkv) against their plain
+    versions, through WavLMAttentionFn on (B, H, L, D) views of a fused QKV
+    tensor with fp32 bias and gate needing gradients, with the launch
+    counts.  A second backward is bit-identical: no float atomics, dbias
+    summed over the batch in one block.  Bound: max abs error <= rel * max
+    |plain| for out, dq, dk, dv, dgate and dbias."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    B, L, D = 3, 333, 64
+    D = 64
     qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
     dout = torch.randn(B, L, H * D, device="cuda", generator=gen).to(dtype)
     bias = torch.randn(H, L, L, device="cuda", generator=gen)
@@ -819,6 +885,70 @@ def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_k
     again = grad()
     for name, a, b2 in zip(("dqkv", "dbias", "dgate"), (gx, gb, gg), again[1:]):
         assert torch.equal(a, b2), f"{name}: a second backward differs"
+
+
+@pytest.mark.gpu
+def test_wavlm_backward_pair_refuses_misaligned_views_on_card():
+    """bf16 at head_dim 64 runs the single backward pair's tensor-core
+    bodies or raises: views whose pointer is not 16-byte aligned, or whose
+    row stride is not a multiple of 8 elements, get cudaErrorMisalignedAddress
+    (716) from the dispatch, and the wrappers raise without counting a
+    launch (the CUDA-core forward takes such views)."""
+    _card()
+    B, L, H, D = 2, 100, 12, 64
+    HD = H * D
+    shifted = torch.randn(B, L, 3 * HD + 8, device="cuda").to(torch.bfloat16)[..., 4:]
+    odd_rows = torch.randn(B, L, 3 * HD + 4, device="cuda").to(torch.bfloat16)[..., :3 * HD]
+    bias = torch.randn(H, L, L, device="cuda")
+    gate = torch.rand(B, H, L, device="cuda") + 1.0
+    kw = dict(scale=D ** -0.5)
+    with torch.no_grad():
+        for qkv in (shifted, odd_rows):
+            q, k, v = (t.unflatten(-1, (H, D)).transpose(1, 2)
+                       for t in (qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:3 * HD]))
+            out, m, l = wavlm_attention_fwd(q, k, v, bias, gate, None, **kw)
+            dout = torch.randn_like(out)
+            n = (wavlm_attention_bwd_fused.launches, wavlm_attention_bwd_dkv.launches)
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                wavlm_attention_bwd_fused(q, k, v, bias, gate, out, dout, m, l, None, **kw)
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                wavlm_attention_bwd_dkv(q, k, v, bias, gate, out, dout, m, l, torch.zeros_like(m),
+                                        None, **kw)
+            assert (wavlm_attention_bwd_fused.launches, wavlm_attention_bwd_dkv.launches) == n
+
+
+@pytest.mark.gpu
+def test_wavlm_fused_length_limit_holds_for_the_cuda_core_body_only_on_card():
+    """The fused entry's (32 x ceil64(L)) dbias strip limits its CUDA-core
+    body to L <= fused_max_len (1344 at head_dim 64): fp32 at L = 1400 still
+    raises before it launches.  The tensor-core bodies (bf16 at head_dim
+    64) hold no strip, so bf16 at L = 1400 runs the single route and agrees
+    with the plain version within 2e-2 x max |plain|."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, H, L, D = 1, 2, 1400, 64
+    kw = dict(scale=D ** -0.5, dropout_rate=0.1,
+              seed=torch.tensor([1234], dtype=torch.int32, device="cuda"))
+    bias = torch.randn(H, L, L, device="cuda", generator=gen)
+    gate = 1.0 + torch.rand(B, H, L, device="cuda", generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn(B, H, L, D, device="cuda", generator=gen).to(dtype)
+                         for _ in range(4))
+        args = (q, k, v, bias, gate)
+        with torch.no_grad():
+            out, m, l = wavlm_attention_fwd(*args, None, **kw)
+            if dtype == torch.float32:
+                n = wavlm_attention_bwd_fused.launches
+                with pytest.raises(ValueError, match="dbias strip"):
+                    wavlm_attention_bwd_fused(*args, out, dout, m, l, None, **kw)
+                assert wavlm_attention_bwd_fused.launches == n
+                continue
+            dq, dgate, dbias, di = wavlm_attention_bwd_fused(*args, out, dout, m, l, None, **kw)
+            dk, dv = wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, None, **kw)
+            want = wavlm_attention_bwd_reference(*args, out, dout, None, **kw)
+        for name, got, w in zip(("dq", "dk", "dv", "dbias", "dgate"),
+                                (dq, dk, dv, dbias, dgate), want):
+            _assert_close(got, w, 2e-2, name)
 
 
 @pytest.mark.gpu
