@@ -37,10 +37,10 @@ Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
 the card at the shapes its path gives it, timed beside its bound and a
 library call (the backward rows beside two: the library's backward without
-and with dropout), and the packed and flash entries, forward and backward,
-give up their dropout mask bit for bit through both bodies (bf16 on the
-tensor cores, fp32 on the CUDA cores; the rows and the kernels line name
-the body, and the build fails if a tensor-core body spills or ptxas
+and with dropout), and the packed, flash and WavLM entries, forward and
+backward, give up their dropout mask bit for bit through both bodies (bf16
+on the tensor cores, fp32 on the CUDA cores; the rows and the kernels line
+name the body, and the build fails if a tensor-core body spills or ptxas
 warns about its wgmma), and
 each path is checked to have gone through its kernels (launch counts, set
 to 0 just before the path and read just after, exactly what the routing
@@ -287,13 +287,14 @@ def dtype_name(dtype) -> str:
 
 # the tensor-core bodies (bf16, D = 64), 8192-byte bf16 tiles and 1024 bytes
 # to align the base: the forward's resident Q tile and a two-stage ring of
-# K and V (csrc/attention_fwd.cu); the backward's two resident tiles, the
+# K and V (csrc/attention_fwd_wgmma.cuh, also WavLM's forward); the backward's two resident tiles, the
 # same ring, and m, l and di of 64 rows (one set in dq, one a stage in dkv;
 # csrc/attention_bwd_wgmma.cuh); WavLM's dq and dkv as those with the gate
 # beside m, l and di (dkv also a 64 x 68 fp32 bias tile), and its dbias
 # body's two-stage ring of Q, dO, K, V and the four statistics
 # (csrc/wavlm_attention_wgmma.cuh)
 WGMMA_SMEM_BYTES = {"attention_fwd_wgmma_kernel": 5 * 8192 + 1024,
+                    "wavlm_fwd_wgmma_kernel": 5 * 8192 + 1024,
                     "attention_bwd_dq_wgmma_kernel": 6 * 8192 + 768 + 1024,
                     "attention_bwd_dkv_wgmma_kernel": 6 * 8192 + 2 * 768 + 1024,
                     "wavlm_bwd_dq_wgmma_kernel": 6 * 8192 + 1024 + 1024,
@@ -330,8 +331,9 @@ def _ptxas(report: str):
                          r"wavlm_bwd_q_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
                          block)
         wgmma = re.search(r"(attention_fwd_wgmma_kernel|attention_bwd_dq_wgmma_kernel|"
-                          r"attention_bwd_dkv_wgmma_kernel|wavlm_bwd_dq_wgmma_kernel|"
-                          r"wavlm_bwd_dbias_wgmma_kernel|wavlm_bwd_dkv_wgmma_kernel)", block)
+                          r"attention_bwd_dkv_wgmma_kernel|wavlm_fwd_wgmma_kernel|"
+                          r"wavlm_bwd_dq_wgmma_kernel|wavlm_bwd_dbias_wgmma_kernel|"
+                          r"wavlm_bwd_dkv_wgmma_kernel)", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         if wgmma is not None:
@@ -351,8 +353,8 @@ def _ptxas(report: str):
     return rows
 
 
-# instantiations per source; wavlm_attention: 19 CUDA-core (the fused body
-# not for bf16 at D = 64) and the three tensor-core bodies
+# instantiations per source; wavlm_attention: 18 CUDA-core (the forward and
+# fused bodies not for bf16 at D = 64) and the four tensor-core bodies
 SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 22))
 
 
@@ -513,21 +515,33 @@ def phase_mask_readout(layout: str, path: str) -> None:
 def phase_forward_mask_readout(layout: str, path: str) -> None:
     """The dropout mask read out of a layout's forward entry on the card
     (``forward_mask_readout``: q = k = 0, coded value rows, 2 x 12 heads of
-    64, 11 for flash), bit for bit, through both bodies at L = 200: bf16
-    (wgmma, every accumulator element's (row, column)) and fp32 (CUDA
-    cores).  Fails on any flipped bit, or on a flash l other than L."""
-    H = 12 if layout == "packed" else 11
+    64, 11 for flash; for WavLM a zero bias, both entries: the single one
+    and the general one at block_kv 128), bit for bit, through both bodies
+    at L = 200: bf16 (wgmma, every accumulator element's (row, column)) and
+    fp32 (CUDA cores).  Fails on any flipped bit, or on an l other than L."""
+    H = 11 if layout == "flash" else 12
     L = 200
-    for dtype in (torch.bfloat16, torch.float32):
-        found = forward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), H=H, L=L)
-        flipped = {f"seed {seed}": int((got != want).sum().item())
-                   for seed, got, want, _ in found}
-        l_ok = all(l is None or bool((l == L).all()) for *_, l in found)
-        row = {"phase": "mask_readout", "entry": "forward", "path": path, "layout": layout,
-               "dtype": dtype_name(dtype), "body": kernel_body(dtype, 64),
-               "shape_BHLD": [2, H, L, 64], "flipped_bits": flipped, "l_is_L": l_ok}
-        emit(row)
-        check(sum(flipped.values()) == 0 and l_ok, f"{layout} forward mask readout: {row}")
+    entries = {"packed": ((None, "packed_attention_fwd"),),
+               "flash": ((None, "flash_attention_fwd"),),
+               "wavlm": ((None, "wavlm_attention_fwd"),
+                         (WAVLM_GENERAL_BLOCK_KV, "wavlm_attention_fwd_general"))}[layout]
+    for block_kv, entry in entries:
+        for dtype in (torch.bfloat16, torch.float32):
+            n = WRAPPERS[entry].launches
+            found = forward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), H=H, L=L,
+                                         block_kv=block_kv)
+            flipped = {f"seed {seed}": int((got != want).sum().item())
+                       for seed, got, want, _ in found}
+            l_ok = all(l is None or bool((l == L).all()) for *_, l in found)
+            body = (wavlm_kernel_body(entry, dtype, 64) if layout == "wavlm"
+                    else kernel_body(dtype, 64))
+            row = {"phase": "mask_readout", "entry": "forward", "path": path, "layout": layout,
+                   "kernel": entry, "dtype": dtype_name(dtype), "body": body,
+                   "shape_BHLD": [2, H, L, 64], "flipped_bits": flipped, "l_is_L": l_ok}
+            emit(row)
+            check(sum(flipped.values()) == 0 and l_ok, f"{layout} forward mask readout: {row}")
+            check(WRAPPERS[entry].launches == n + len(found),
+                  f"{entry}: the readout did not go through its kernel")
 
 
 def rel_error(got, want, what: str, dtype) -> dict:
@@ -819,11 +833,13 @@ def phase_wavlm_kernels(spec) -> dict:
     lengths, forward only.  library = scaled_dot_product_attention with
     the materialised (B, H, L, L) mask gate * bias (+ the key mask), the
     mask built outside the timing; for the backward, its backward with the
-    mask needing a gradient.  The rows name the body (the single backward
-    pair in bf16: wgmma), the backward rows carry the time without dropout
-    and the achieved TFLOP/s of the entry's function, and every backward
-    entry's rerun must give the same bits.  Then the dropout mask is read
-    out of the single backward pair through both bodies."""
+    mask needing a gradient.  The rows name the body (in bf16 both forwards
+    and the single backward pair: wgmma), carry the time without dropout
+    and the achieved TFLOP/s of the entry's function; in bf16 the general
+    forward's out, m and l equal the single one's bit for bit (one body),
+    and every backward entry's rerun must give the same bits.  Then the
+    dropout mask is read out of the single backward pair and of both
+    forward entries through both bodies."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(12)
     D = 64
@@ -858,10 +874,14 @@ def phase_wavlm_kernels(spec) -> dict:
                 check(stats["m_max_abs_err"] <= 1e-4 and stats["l_max_rel_err"] <= 1e-4,
                       f"wavlm fwd {label} {dtype} statistics: {stats}")
                 bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
+                ms = time_ms(lambda: wavlm_attention_fwd(*args, lengths, **kw))
                 row = {"phase": "kernel", "name": "wavlm_attention_fwd", **common,
                        "body": wavlm_kernel_body("wavlm_attention_fwd", dtype, D),
                        **rel_error(out, want, f"wavlm fwd {label} {dtype}", dtype), **stats,
-                       "ms": time_ms(lambda: wavlm_attention_fwd(*args, lengths, **kw)),
+                       "ms": ms,
+                       "ms_no_dropout": ms if rate == 0.0 else time_ms(
+                           lambda: wavlm_attention_fwd(*args, lengths, **{**kw, "dropout_rate": 0.0})),
+                       "achieved_tflops": wavlm_flops("fwd", B, L, H, D, lengths) / ms / 1e9,
                        "plain_ms": time_ms(lambda: wavlm_attention_reference(*args, lengths, **kw),
                                            reps=5),
                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -925,12 +945,22 @@ def phase_wavlm_kernels(spec) -> dict:
                 if dtype == torch.float32:
                     check(max(vs_single.values()) <= 1e-5,
                           f"wavlm general vs single entries, fp32: {vs_single}")
+                else:  # the same tensor-core forward body, in another block order
+                    check(all(torch.equal(*general[n]) for n in ("out", "m", "l")),
+                          f"wavlm general vs single forward, bf16, not bit for bit: {vs_single}")
                 bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
+                ms = time_ms(lambda: wavlm_attention_fwd_general(*args, lengths, **kw))
                 row = {"phase": "kernel", "name": "wavlm_attention_fwd_general", **common,
                        "block_kv": WAVLM_GENERAL_BLOCK_KV,
+                       "body": wavlm_kernel_body("wavlm_attention_fwd_general", dtype, D),
                        **rel_error(out_g, want, f"wavlm fwd general {label} {dtype}", dtype),
                        "rel_err_vs_single": vs_single,
-                       "ms": time_ms(lambda: wavlm_attention_fwd_general(*args, lengths, **kw)),
+                       "fwd_bit_identical_to_single": all(
+                           torch.equal(*general[n]) for n in ("out", "m", "l")),
+                       "ms": ms,
+                       "ms_no_dropout": time_ms(lambda: wavlm_attention_fwd_general(
+                           *args, lengths, **{**kw, "dropout_rate": 0.0})),
+                       "achieved_tflops": wavlm_flops("fwd", B, L, H, D, lengths) / ms / 1e9,
                        "plain_ms": results[("wavlm_attention_fwd", label, dtype)]["plain_ms"],
                        "library_ms": results[("wavlm_attention_fwd", label, dtype)]["library_ms"],
                        "bound_ms": bound, "bound_by": by}
@@ -968,6 +998,7 @@ def phase_wavlm_kernels(spec) -> dict:
             del wq, wk, wv, wbias, wgate, general, entries
             torch.cuda.empty_cache()
     phase_mask_readout("wavlm", "wavlm_train")
+    phase_forward_mask_readout("wavlm", "wavlm_train")
     return results
 
 
@@ -1700,12 +1731,13 @@ def main() -> int:
             entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
     check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
-    # bf16 on the tensor cores: every packed and flash entry and the WavLM
-    # single route's backward pair
+    # bf16 on the tensor cores: every packed and flash entry, both WavLM
+    # forwards and the WavLM single route's backward pair
     bodies = {e["name"]: e["body"] for e in line if not e["name"].startswith("wavlm_")
-              or e["name"] in ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")}
-    check(len(bodies) == 8 and set(bodies.values()) == {"wgmma"},
-          f"bf16 bodies of the packed, flash and WavLM single backward entries: {bodies}")
+              or e["name"] in ("wavlm_attention_fwd", "wavlm_attention_fwd_general",
+                               "wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")}
+    check(len(bodies) == 10 and set(bodies.values()) == {"wgmma"},
+          f"bf16 bodies of the packed, flash, WavLM forward and single backward entries: {bodies}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})

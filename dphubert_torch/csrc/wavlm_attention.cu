@@ -7,9 +7,9 @@
 // B*H*L*L is ever in memory.
 //
 // Replaces the seven Pallas kernels of the TPU package's
-// ops/wavlm_attention.py with three CUDA-core kernel bodies (and, for the
-// single route's backward pair in bf16 at D = 64, the three tensor-core
-// bodies of wavlm_attention_wgmma.cuh: below):
+// ops/wavlm_attention.py with three CUDA-core kernel bodies (and, in bf16
+// at D = 64, for both forward entries and the single route's backward pair,
+// the four tensor-core bodies of wavlm_attention_wgmma.cuh: below):
 //   * wavlm_fwd_kernel: _fwd_single_kernel (pallas_call at :216), entry
 //     wavlm_attention_fwd, and _fwd_kernel (:268), entry
 //     wavlm_attention_fwd_general.  out, and the row max m and undropped
@@ -56,12 +56,18 @@
 // reads of q, k, v, dout of the same order as HuBERT's and of the (H, L, L)
 // bias table: at the stage-1 shape (B = 16, L = 749, 12 heads of 64) the
 // operations outweigh the bytes, so the kernels are bound by operations.
-// For bf16 at D = 64 (every DPWavLM training step on the card) the single
-// route's backward pair runs on the tensor cores: wavlm_attention_wgmma.cuh,
-// where the fused entry is a dq body (dq, dgate, di) and a dbias body that
-// sums the batch per 64 x 64 tile.  Everything else runs fp32 FMA on the
-// CUDA cores (67 TFLOP/s, not the tensor cores' 989 TFLOP/s in bf16).  What
-// the CUDA-core design does:
+// For bf16 at D = 64 (every DPWavLM training step and bf16 WavLM serving on
+// the card) both forward entries and the single route's backward pair run
+// on the tensor cores (wavlm_attention_wgmma.cuh): the forward is
+// attention_fwd.cu's tensor-core body with the gate * bias term added to
+// S's fragment (one body, blocks in each entry's order), the fused entry a
+// dq body (dq, dgate, di) and a dbias body that sums the batch per 64 x 64
+// tile, dkv its own body; such calls run there or are refused
+// (cudaErrorMisalignedAddress for views the 16-byte copies cannot read).
+// The general route's three backward entries, fp32 (the card-vs-CPU check
+// path, which TF32 products would break) and D = 80 (XLarge) run fp32 FMA
+// on the CUDA cores (67 TFLOP/s, not the tensor cores' 989 TFLOP/s in
+// bf16).  What the CUDA-core design does:
 //   * the forward and dkv bodies are the flash bodies of attention_fwd.cu /
 //     attention_bwd.cu (64x64 score tiles, a 4x4 register tile a thread)
 //     with the bias term added where the scores are formed; the forward
@@ -92,19 +98,6 @@ namespace {
 
 constexpr int kRowsQ = 32;    // q rows of the backward's dq-side body
 constexpr int kStripPad = 8;  // rows 2 apart of the strip land 16 banks apart
-
-// Where a block's (tile, head, batch) indices come from: the single
-// entries put the batch innermost (blockIdx.x), the general ones outermost.
-struct Tile {
-  int tile, h, b;
-};
-__device__ __forceinline__ Tile block_tile(bool batch_inner) {
-  if (batch_inner) return Tile{(int)blockIdx.y, (int)blockIdx.z, (int)blockIdx.x};
-  return Tile{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z};
-}
-dim3 tile_grid(int tiles, int H, int B, bool batch_inner) {
-  return batch_inner ? dim3(B, tiles, H) : dim3(tiles, H, B);
-}
 
 struct WArgs {
   const void *q, *k, *v, *out, *dout;
@@ -739,16 +732,26 @@ cudaError_t launch_q(const WArgs& a, cudaStream_t stream) {
 
 enum class Kind { kFwd, kDkv, kFused, kDq, kDbias };
 
-// The single route's backward pair in bf16 at D = 64 (the tensor-core
-// bodies): the fused entry launches the dq body, then the dbias body that
-// reads its di, on one stream; the dkv entry the dkv body.  Blocks are
-// ordered batch-innermost where a block owns one batch row.
+// bf16 at D = 64 (the tensor-core bodies): both forward entries launch the
+// forward body (blocks in their entry's order); the fused entry launches
+// the dq body, then the dbias body that reads its di, on one stream; the
+// single dkv entry the dkv body.  The backward's blocks are ordered
+// batch-innermost where a block owns one batch row.
 cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int tiles = (a.L + kWgRows - 1) / kWgRows;
   const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
   cudaError_t err;
+  if (kind == Kind::kFwd) {
+    auto kernel = wavlm_fwd_wgmma_kernel;
+    static bool configured = false;
+    if ((err = allow_smem(kernel, kWgFwdSmem, &configured)) != cudaSuccess) return err;
+    kernel<<<tile_grid(tiles, a.H, a.B, a.batch_inner), kWgThreads, kWgFwdSmem, stream>>>(
+        q, k, v, a.bias, a.gate, static_cast<bf16*>(a.o), a.m, a.l, a.lengths, a.H, a.L, a.in,
+        a.scale, a.drop, a.batch_inner);
+    return cudaGetLastError();
+  }
   if (kind == Kind::kDkv) {
     auto kernel = wavlm_bwd_dkv_wgmma_kernel;
     static bool configured = false;
@@ -775,18 +778,20 @@ cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 at D = 64 takes the fused entry to launch_wgmma (dispatch), so its
-// CUDA-core fused body is not instantiated
+// bf16 at D = 64 takes the forward and fused entries to launch_wgmma
+// (dispatch), so their CUDA-core bodies are not instantiated for it
 template <typename T, int D>
-constexpr bool kWgmmaPair = std::is_same<T, __nv_bfloat16>::value && D == 64;
+constexpr bool kWgmma = std::is_same<T, __nv_bfloat16>::value && D == 64;
 
 template <typename T, int D>
 cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
   switch (kind) {
-    case Kind::kFwd: return launch_fwd<T, D>(a, stream);
+    case Kind::kFwd:
+      if constexpr (!kWgmma<T, D>) return launch_fwd<T, D>(a, stream);
+      break;
     case Kind::kDkv: return launch_dkv<T, D>(a, stream);
     case Kind::kFused:
-      if constexpr (!kWgmmaPair<T, D>) return launch_q<T, D, true, true>(a, stream);
+      if constexpr (!kWgmma<T, D>) return launch_q<T, D, true, true>(a, stream);
       break;
     case Kind::kDq: return launch_q<T, D, true, false>(a, stream);
     case Kind::kDbias: return launch_q<T, D, false, true>(a, stream);
@@ -797,13 +802,14 @@ cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
 cudaError_t dispatch(Kind kind, int dtype, int D, const WArgs& a,
                      cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.L <= 0) return cudaErrorInvalidValue;
-  const bool single_pair = kind == Kind::kFused || (kind == Kind::kDkv && a.batch_inner);
-  if (dtype == 1 && D == 64 && single_pair) {
+  const bool wgmma_entry = kind == Kind::kFwd || kind == Kind::kFused ||
+                           (kind == Kind::kDkv && a.batch_inner);
+  if (dtype == 1 && D == 64 && wgmma_entry) {
     // the tensor-core bodies copy q, k, v and dout rows (and read out) 16
     // bytes at a time and write bf16 pairs: other pointers and strides are
-    // refused, never run on the CUDA-core body
-    const bool fused = kind == Kind::kFused;
-    const void* ptrs[] = {a.q, a.k, a.v, a.dout, fused ? a.out : a.dk, fused ? a.dq : a.dv};
+    // refused, never run on the CUDA-core body (an entry's unused pointers
+    // are null)
+    const void* ptrs[] = {a.q, a.k, a.v, a.o, a.out, a.dout, a.dq, a.dk, a.dv};
     for (const void* p : ptrs)
       if (!aligned16(p)) return cudaErrorMisalignedAddress;
     if (!rows_of_8(a.in)) return cudaErrorMisalignedAddress;
@@ -899,7 +905,9 @@ extern "C" {
 // (B, H, L) float32.  lengths: (B,) int32 or null.  seed: one int32 on the
 // card, or null for no dropout; threshold and inv_keep as in
 // attention_common.cuh.  dtype: 0 = float32, 1 = bfloat16.  Returns a
-// cudaError_t.  The single entry orders its blocks batch-innermost.
+// cudaError_t: for bf16 at D = 64 cudaErrorMisalignedAddress when q, k, v
+// or out is not 16-byte aligned or a stride is not a multiple of 8.  The
+// single entry orders its blocks batch-innermost.
 int wavlm_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, const void* gate, void* out, void* m,
                         void* l, const void* lengths, const void* seed,

@@ -1,10 +1,23 @@
-// Tensor-core bodies of the WavLM single route's backward pair: bf16 inputs
-// at head_dim 64, the dtype and width of every DPWavLM training step on the
-// card.  wavlm_attention.cu's dispatch picks them for (bf16, 64) in
-// wavlm_attention_bwd_fused and wavlm_attention_bwd_dkv; fp32, D = 80 and
-// the general route's entries keep the CUDA-core bodies there.
+// Tensor-core bodies of WavLM's gated-bias attention: bf16 inputs at
+// head_dim 64, the dtype and width of every DPWavLM training step and of
+// bf16 WavLM serving on the card.  wavlm_attention.cu's dispatch picks them
+// for (bf16, 64) in both forward entries, wavlm_attention_bwd_fused and
+// wavlm_attention_bwd_dkv; fp32, D = 80 and the general route's three
+// backward entries keep the CUDA-core bodies there.
 //
-// They are attention_bwd_wgmma.cuh's dq and dkv bodies (one warpgroup per
+// The forward (wavlm_fwd_wgmma_kernel) is attention_fwd_wgmma.cuh's body
+// with the gated bias: the bias fragment loaded one KV tile ahead, while
+// the previous tile's P V multiplies, added as fmaf(gate, bias, s * scale)
+// before the key mask, so the m and l it writes are the ones the backward
+// bodies below recompute p from.  Its two entries differ only in block
+// order (block_tile): batch innermost for wavlm_attention_fwd, so the B
+// blocks that read one bias tile run together and hit L2; outermost for
+// wavlm_attention_fwd_general.  It is held to 128 registers, 4 blocks an
+// SM (ptxas fits it in 122 without a spill; unbounded it takes 128 with the
+// prefetch, 153 without, and 3 blocks an SM ran 17% slower at serving's
+// shape).
+//
+// The backward bodies are attention_bwd_wgmma.cuh's dq and dkv bodies (one warpgroup per
 // 64-row tile, every product wgmma.mma_async m64n64k16 on 128-byte-swizzled
 // bf16 tiles, P~ and dS packed in place from the accumulator into the next
 // product's A operand, a two-stage 16-byte cp.async ring), with WavLM's
@@ -46,7 +59,7 @@
 // against these choices are in PERF.md (tools/ab_wavlm_bwd.py).
 #pragma once
 
-#include "wgmma_common.cuh"
+#include "attention_fwd_wgmma.cuh"
 
 namespace {
 
@@ -63,10 +76,43 @@ constexpr uint32_t kWlBiasTile = kWgRows * kWlBiasStride * 4;
 constexpr uint32_t kWlDkvSmem =
     2 * kWgTile + kWgRing + kWgStages * kWlStats + kWlBiasTile + 1024;
 constexpr int kWlBlocksPerSm = 3;  // the dq and dkv bodies' register bound
+constexpr int kWlFwdBlocksPerSm = 4;  // the forward's register bound (128)
 
 // the valid keys of batch row b (every body of wavlm_attention.cu)
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int L) {
   return lengths != nullptr ? max(0, min(lengths[b], L)) : L;
+}
+
+// Where a block's (tile, head, batch) indices come from: the single
+// entries put the batch innermost (blockIdx.x), the general ones outermost.
+struct Tile {
+  int tile, h, b;
+};
+__device__ __forceinline__ Tile block_tile(bool batch_inner) {
+  if (batch_inner) return Tile{(int)blockIdx.y, (int)blockIdx.z, (int)blockIdx.x};
+  return Tile{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z};
+}
+inline dim3 tile_grid(int tiles, int H, int B, bool batch_inner) {
+  return batch_inner ? dim3(B, tiles, H) : dim3(tiles, H, B);
+}
+
+// The forward, both entries: out (contiguous (B, H, L, 64)), m and l
+// ((B, H, L) fp32) for one (64-row q tile, head, batch row), blocks in the
+// order block_tile gives; q, k, v views with strides `in`; bias (H, L, L)
+// and gate (B, H, L) fp32.  attention_fwd_wgmma.cuh's body with the gated
+// bias.
+__global__ void __launch_bounds__(kWgThreads, kWlFwdBlocksPerSm)
+    wavlm_fwd_wgmma_kernel(
+        const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+        const float* __restrict__ gate, __nv_bfloat16* __restrict__ out,
+        float* __restrict__ m_out, float* __restrict__ l_out,
+        const int* __restrict__ lengths, int H, int L, Strides in, float scale,
+        Dropout drop, bool batch_inner) {
+  const Tile t = block_tile(batch_inner);
+  const Strides os{(long long)H * L * kWgD, kWgD, (long long)L * kWgD};
+  attention_fwd_wgmma_body<true>(q, k, v, out, m_out, l_out, lengths, H, L, in, os, scale, drop,
+                                 GatedBias{bias, gate}, t.tile, t.h, t.b);
 }
 
 // dq, dgate and di for one (64-row q tile, head, batch row); blockIdx = (b,

@@ -2,8 +2,9 @@
 entries.
 
 With chosen inputs the output of ``packed_attention`` / ``flash_attention``
-and the gradients that ``packed_attention_bwd_dq`` / ``_dkv``,
-``flash_attention_bwd_dq`` / ``_dkv`` and ``wavlm_attention_bwd_fused`` /
+/ ``wavlm_attention`` (both WavLM forward entries) and the gradients that
+``packed_attention_bwd_dq`` / ``_dkv``, ``flash_attention_bwd_dq`` /
+``_dkv`` and ``wavlm_attention_bwd_fused`` /
 ``wavlm_attention_bwd_dkv`` return are integers whose bits are the keep mask
 the kernel drew at each (batch, head, row, column), so a test can hold the
 kernels' device hash, at every accumulator element's (row, column), bit for
@@ -25,7 +26,7 @@ from .packed_attention import (
     packed_attention_bwd_dkv,
     packed_attention_bwd_dq,
 )
-from .wavlm_attention import wavlm_attention_bwd_dkv, wavlm_attention_bwd_fused
+from .wavlm_attention import wavlm_attention, wavlm_attention_bwd_dkv, wavlm_attention_bwd_fused
 
 
 def _coded(L, D, device):
@@ -38,16 +39,19 @@ def _coded(L, D, device):
 
 def forward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterable[int],
                          B: int = 2, H: int = 12, L: int = 200, D: int = 64,
-                         rate: float = 0.1) -> List[Tuple[int, torch.Tensor, torch.Tensor,
-                                                          Optional[torch.Tensor]]]:
+                         rate: float = 0.1, block_kv: Optional[int] = None,
+                         ) -> List[Tuple[int, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]]:
     """The dropout mask read out of the forward entry of ``layout``
-    ("packed" or "flash"): with q = k = 0 every key gets the same weight,
-    and value row j holds 2**(j // D) in column j % D, so out * L * keep is
-    the integer sum_blk keep(i, blk * D + d) * 2**blk, whose bits are row i
-    of the mask.  In bf16 the codes survive the output's rounding while
-    they stay below 2**4 (L <= 4 D).  Returns [(seed, got, want, l)] with
-    (B, H, L, L) boolean masks and, for flash, the row sums l (L for every
-    row: l is the undropped sum), None for packed."""
+    ("packed", "flash", or "wavlm": ``wavlm_attention`` with a zero bias and
+    a gate of 1.5, so the gated term adds 0, on the route ``block_kv``
+    picks: the single entry for None, the general one for a block_kv below
+    the padded length): with q = k = 0 every key gets the same weight, and
+    value row j holds 2**(j // D) in column j % D, so out * L * keep is the
+    integer sum_blk keep(i, blk * D + d) * 2**blk, whose bits are row i of
+    the mask.  In bf16 the codes survive the output's rounding while they
+    stay below 2**4 (L <= 4 D).  Returns [(seed, got, want, l)] with (B, H,
+    L, L) boolean masks and, for flash and wavlm, the row sums l (L for
+    every row: l is the undropped sum), None for packed."""
     keep = 1.0 - rate
     j = torch.arange(L, device=device)
     v1 = _coded(L, D, device)
@@ -56,6 +60,9 @@ def forward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterabl
     else:
         v = v1.expand(B, H, L, D).contiguous().to(dtype)
     qk = torch.zeros_like(v)
+    if layout == "wavlm":
+        bias = torch.zeros(H, L, L, device=device)
+        gate = torch.full((B, H, L), 1.5, device=device)
     b = torch.arange(B, device=device).view(B, 1, 1, 1)
     h = torch.arange(H, device=device).view(1, H, 1, 1)
     found = []
@@ -67,8 +74,11 @@ def forward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterabl
                 out = packed_attention(qk, qk, v, None, num_heads=H, dropout_rate=rate,
                                        seed=t_seed)
                 out = out.view(B, L, H, D).transpose(1, 2)
-            else:
+            elif layout == "flash":
                 out, _, l = flash_attention(qk, qk, v, None, dropout_rate=rate, seed=t_seed)
+            else:
+                out, _, l = wavlm_attention(qk, qk, v, bias, gate, None, dropout_rate=rate,
+                                            seed=t_seed, block_kv=block_kv)
         code = torch.round(out.double() * L * keep).long()
         got = ((code[..., j % D] >> (j // D)) & 1).bool()
         want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)

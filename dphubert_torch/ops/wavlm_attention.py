@@ -20,9 +20,12 @@ Seven kernel wrappers, each beside its plain version, launch the entries of
   and dgate), ``wavlm_attention_bwd_dbias`` and
   ``wavlm_attention_bwd_dkv_general``.
 
-For bf16 at head_dim 64 the single route's backward pair runs on the
-tensor cores (``csrc/wavlm_attention_wgmma.cuh``; ``wavlm_kernel_body``
-names the body an entry runs).
+For bf16 at head_dim 64 both forward entries (one body, blocks in another
+order) and the single route's backward pair run on the tensor cores
+(``csrc/wavlm_attention_wgmma.cuh``), or raise on views their 16-byte
+copies cannot read; the general route's backward entries, fp32 and head_dim
+80 run on the CUDA cores (``wavlm_kernel_body`` names the body an entry
+runs).
 
 The plain versions are ``wavlm_attention_reference`` and
 ``wavlm_attention_bwd_reference``.  Each wrapper runs the plain version on
@@ -69,14 +72,16 @@ LANES = 128
 # q_smem_floats); the H100's 227 KB per block hold it up to these lengths
 _SMEM_FLOATS = 232448 // 4
 # the entries whose bf16, head_dim 64 calls run the tensor-core bodies
-_WGMMA_ENTRIES = ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
+_WGMMA_ENTRIES = ("wavlm_attention_fwd", "wavlm_attention_fwd_general",
+                  "wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
 
 
 def wavlm_kernel_body(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """Which body the WavLM entry ``name`` of ``csrc/wavlm_attention.cu``
-    runs: "wgmma" (tensor cores, ``wavlm_attention_wgmma.cuh``) for the
-    single route's backward pair in bf16 at head_dim 64, "fma" (fp32 on the
-    CUDA cores) for every other entry, dtype and width."""
+    runs: "wgmma" (tensor cores, ``wavlm_attention_wgmma.cuh``) for both
+    forward entries and the single route's backward pair in bf16 at
+    head_dim 64, "fma" (fp32 on the CUDA cores) for the general route's
+    backward entries and for every entry in fp32 or at head_dim 80."""
     return kernel_body(dtype, head_dim) if name in _WGMMA_ENTRIES else "fma"
 
 
@@ -225,7 +230,9 @@ def wavlm_attention_fwd(q, k, v, bias, gate, lengths=None, *, scale: Optional[fl
     (B, H, L, D) views (unit stride in the last dimension, one set of
     strides); bias (H, L, L) and gate (B, H, L) contiguous fp32; lengths an
     int32 (B,) tensor or None; seed a one-element int32 tensor with
-    dropout.  CPU tensors take the plain version."""
+    dropout.  In bf16 at head_dim 64 (the tensor-core body) q, k and v must
+    be 16-byte aligned with strides a multiple of 8, or the launch raises
+    (cudaError 716).  CPU tensors take the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     forward_only("wavlm_attention_fwd", q, k, v, bias, gate)

@@ -622,15 +622,17 @@ def test_kernel_body_is_the_tensor_core_one_for_bf16_at_head_dim_64():
         assert kernel_body(dtype, head_dim) == "fma"
 
 
-def test_wavlm_kernel_body_is_the_tensor_core_one_for_the_single_backward_pair():
-    """Of the seven WavLM entries only the single route's backward pair
-    (wavlm_attention_bwd_fused and _dkv) has tensor-core bodies, taken for
-    bf16 at head_dim 64; the forwards and the general route's entries, and
-    the pair in fp32 or at head_dim 80, run the CUDA-core bodies."""
-    pair = ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
+def test_wavlm_kernel_body_is_the_tensor_core_one_for_the_forwards_and_single_backward_pair():
+    """Of the seven WavLM entries both forwards (wavlm_attention_fwd and
+    _fwd_general, one body) and the single route's backward pair
+    (wavlm_attention_bwd_fused and _dkv) have tensor-core bodies, taken for
+    bf16 at head_dim 64; the general route's three backward entries, and
+    every entry in fp32 or at head_dim 80, run the CUDA-core bodies."""
+    wgmma = ("wavlm_attention_fwd", "wavlm_attention_fwd_general", "wavlm_attention_bwd_fused",
+             "wavlm_attention_bwd_dkv")
     for fn in WAVLM_KERNELS:
         name = fn.__name__
-        assert wavlm_kernel_body(name, torch.bfloat16, 64) == ("wgmma" if name in pair else "fma")
+        assert wavlm_kernel_body(name, torch.bfloat16, 64) == ("wgmma" if name in wgmma else "fma")
         for dtype, head_dim in ((torch.float32, 64), (torch.float32, 80), (torch.bfloat16, 80)):
             assert wavlm_kernel_body(name, dtype, head_dim) == "fma"
 
@@ -779,42 +781,32 @@ def test_flash_backward_kernels_match_plain_versions_on_card(dtype, rel, H, leng
     assert torch.equal(g, grad()[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_kv", [None, 64])
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
-def test_wavlm_dropout_mask_read_out_of_the_forward(device, block_kv):
+def test_wavlm_dropout_mask_read_out_of_the_forward(device, block_kv, dtype):
     """The WavLM forward's dropout mask, bit for bit the plain mask, read
-    out as in ``test_dropout_mask_read_out_of_the_forward``: with q = k = 0
-    and a zero bias (the gate then scales nothing) every key gets the same
-    weight.  On the card that is the device hash inside
-    ``wavlm_attention_fwd`` (block_kv None, the single route) and
-    ``wavlm_attention_fwd_general`` (block_kv 64: two KV blocks of the
-    padded 128).  The head index is the index in the tensors' heads (the
-    selected heads of a pruned layer).  L = 130 spans three 64-row tiles."""
+    out as in ``test_dropout_mask_read_out_of_the_forward``
+    (``forward_mask_readout("wavlm")``): with q = k = 0 and a zero bias
+    (the gate then scales nothing) every key gets the same weight.  On the
+    card that is the device hash inside ``wavlm_attention_fwd`` (block_kv
+    None, the single route) and ``wavlm_attention_fwd_general`` (block_kv
+    64: two KV blocks of the padded 128): in bf16 at every accumulator
+    element's (row, column) of the tensor-core body, where a wrong fragment
+    map flips bits, in fp32 through the CUDA-core body.  The head index is
+    the index in the tensors' heads (the selected heads of a pruned layer).
+    L = 130 spans three 64-row tiles; its codes (at most 7) survive the bf16
+    output's rounding."""
     if device == "cuda":
         _card()
-    B, H, L, D, rate = 2, 7, 130, 64, 0.1
-    keep = 1.0 - rate
-    j = torch.arange(L, device=device)
-    v1 = torch.zeros(L, D, device=device)
-    v1[j, j % D] = 2.0 ** (j // D).float()
-    v = v1.expand(B, H, L, D).contiguous()
-    qk = torch.zeros_like(v)
-    bias = torch.zeros(H, L, L, device=device)
-    gate = torch.rand(B, H, L, device=device) + 1.0
-    b = torch.arange(B, device=device).view(B, 1, 1, 1)
-    h = torch.arange(H, device=device).view(1, H, 1, 1)
     counts = (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches)
-    for seed in (-123456789, 2**31 - 1, -2**31):
-        t_seed = torch.tensor([seed], dtype=torch.int32, device=device)
-        with torch.no_grad():
-            out, _, l = wavlm_attention(qk, qk, v, bias, gate, None, dropout_rate=rate,
-                                        seed=t_seed, block_kv=block_kv)
-        assert torch.equal(l, torch.full_like(l, float(L)))  # l is the undropped sum
-        code = torch.round(out.double() * L * keep).long()
-        got = (code[..., j % D] >> (j // D)) & 1
-        want = dropout_keep_mask((L, L), keep, seed, b, h, device=device)
-        assert torch.equal(got.bool(), want)
-    n = 3 if device == "cuda" else 0
+    seeds = (-123456789, 2**31 - 1, -2**31)
+    for seed, got, want, l in forward_mask_readout("wavlm", device, dtype, seeds, H=7, L=130,
+                                                   block_kv=block_kv):
+        assert torch.equal(l, torch.full_like(l, 130.0))  # l is the undropped sum
+        assert torch.equal(got, want), f"seed {seed}: {(got != want).sum().item()} bits"
+        assert 0.85 < want.float().mean().item() < 0.95
+    n = len(seeds) if device == "cuda" else 0
     single = block_kv is None
     assert (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches) == (
         counts[0] + n * single, counts[1] + n * (not single))
@@ -889,11 +881,12 @@ def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_k
 
 @pytest.mark.gpu
 def test_wavlm_backward_pair_refuses_misaligned_views_on_card():
-    """bf16 at head_dim 64 runs the single backward pair's tensor-core
-    bodies or raises: views whose pointer is not 16-byte aligned, or whose
-    row stride is not a multiple of 8 elements, get cudaErrorMisalignedAddress
-    (716) from the dispatch, and the wrappers raise without counting a
-    launch (the CUDA-core forward takes such views)."""
+    """bf16 at head_dim 64 runs the WavLM tensor-core bodies or raises:
+    views whose pointer is not 16-byte aligned, or whose row stride is not a
+    multiple of 8 elements, get cudaErrorMisalignedAddress (716) from the
+    dispatch, and the wrappers raise without counting a launch: both
+    forward entries, and the single backward pair given out, m and l from
+    the plain forward (no kernel forward takes such views)."""
     _card()
     B, L, H, D = 2, 100, 12, 64
     HD = H * D
@@ -906,7 +899,12 @@ def test_wavlm_backward_pair_refuses_misaligned_views_on_card():
         for qkv in (shifted, odd_rows):
             q, k, v = (t.unflatten(-1, (H, D)).transpose(1, 2)
                        for t in (qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:3 * HD]))
-            out, m, l = wavlm_attention_fwd(q, k, v, bias, gate, None, **kw)
+            n = (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches)
+            for fwd in (wavlm_attention_fwd, wavlm_attention_fwd_general):
+                with pytest.raises(RuntimeError, match="cudaError 716"):
+                    fwd(q, k, v, bias, gate, None, **kw)
+            assert (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches) == n
+            out, m, l = wavlm_attention_reference(q, k, v, bias, gate, None, **kw)
             dout = torch.randn_like(out)
             n = (wavlm_attention_bwd_fused.launches, wavlm_attention_bwd_dkv.launches)
             with pytest.raises(RuntimeError, match="cudaError 716"):
@@ -915,6 +913,46 @@ def test_wavlm_backward_pair_refuses_misaligned_views_on_card():
                 wavlm_attention_bwd_dkv(q, k, v, bias, gate, out, dout, m, l, torch.zeros_like(m),
                                         None, **kw)
             assert (wavlm_attention_bwd_fused.launches, wavlm_attention_bwd_dkv.launches) == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,lengths,rate", [
+    (16, 749, 12, None, 0.1),            # the DPWavLM step
+    (2, 1299, 12, [1049, 1299], 0.0),    # serving's batch of 21 s and 26 s
+    (3, 333, 7, [333, 200, 64], 0.1),    # a pruned layer's 7 heads
+    (4, 130, 12, [130, 64, 1, 0], 0.1),  # rows of length 1 and 0
+])
+def test_wavlm_wgmma_forward_matches_plain_version_on_card(B, L, H, lengths, rate):
+    """Both WavLM forward entries' tensor-core body (bf16, head_dim 64) on
+    (B, H, L, D) views of a fused QKV tensor, with the fp32 gate * bias in
+    the scores: out within 2e-2 x max |plain| of
+    ``wavlm_attention_reference``, m within 1e-4 and l within 1e-4
+    relative of the plain softmax's; the general entry (another block
+    order, the same body) equals the single one bit for bit, and each
+    counts one launch."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    D = 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = (t.view(B, L, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    bias = torch.randn(H, L, L, device="cuda", generator=gen)
+    gate = 1.0 + 2.0 * torch.rand(B, H, L, device="cuda", generator=gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([271828], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=seed)
+    args = (q, k, v, bias, gate, lens)
+    assert wavlm_kernel_body("wavlm_attention_fwd", torch.bfloat16, D) == "wgmma"
+    with torch.no_grad():
+        n = (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches)
+        out, m, l = wavlm_attention_fwd(*args, **kw)
+        got_g = wavlm_attention_fwd_general(*args, **kw)
+        assert (wavlm_attention_fwd.launches, wavlm_attention_fwd_general.launches) == (
+            n[0] + 1, n[1] + 1)
+        want, want_m, want_l = wavlm_attention_reference(*args, **kw)
+    _assert_close(out, want, 2e-2, "out")
+    _assert_stats(m, l, want_m, want_l)
+    for name, a, b in zip(("out", "m", "l"), got_g, (out, m, l)):
+        assert torch.equal(a, b), f"general entry's {name} differs from the single entry's"
 
 
 @pytest.mark.gpu

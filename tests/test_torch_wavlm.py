@@ -145,6 +145,42 @@ def test_plain_attention_matches_pallas_vjp(B, H, L, D, with_lengths, rate, bloc
     np.testing.assert_allclose(di.numpy(), (out * tdo).sum(-1).numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("block_kv", [None, 100])
+def test_plain_bf16_forward_matches_pallas(block_kv):
+    """The plain WavLM forward in bf16 (what the tensor-core body is held
+    to on the card) against the Pallas forward kernels in interpret mode:
+    ``_fwd_single_kernel`` (block_kv None) and ``_fwd_kernel`` (block_kv 100:
+    two KV blocks, an online softmax), on the same bf16 q, k, v, fp32 bias
+    and gate, lengths with one of 0 and dropout 0.1 with the same int32
+    seed.  Both round the unnormalised p to bf16 before the PV product (the
+    general kernel p relative to its running max, the plain version to the
+    row's final max).  The JAX forward is called at the unpadded L = 200 with
+    block_q 100, so that a row of length 0 averages over the same 200 keys
+    in both (the wrapper's padding to 256 would add 56 zero rows).  Bound:
+    out within 2e-2 x max |JAX| (bf16 rounding of p and of the output); m
+    1e-4 absolute; l 1e-4 relative (summation order only)."""
+    B, H, L, D, rate, seed = 2, 3, 200, 64, 0.1, -987654
+    q, k, v, bias, gate, _ = _attention_inputs(11, B, H, L, D)
+    lengths = [137, 0]
+    bf16 = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    want, want_m, want_l = _j_wavlm_attention()._fwd(
+        bf16(q), bf16(k), bf16(v), jnp.asarray(bias), jnp.asarray(gate),
+        jnp.asarray(lengths, jnp.int32), jnp.asarray([seed], jnp.int32), D ** -0.5, 100,
+        L if block_kv is None else block_kv, True, rate)
+    want = np.asarray(want.astype(jnp.float32))
+    want_m, want_l = np.asarray(want_m)[..., 0], np.asarray(want_l)[..., 0]
+    assert wavlm_route(L, block_kv=block_kv) == ("single" if block_kv is None else "general")
+    t_bf16 = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    out, m, l = wavlm_attention(t_bf16(q), t_bf16(k), t_bf16(v), torch.from_numpy(bias),
+                                torch.from_numpy(gate), torch.tensor(lengths, dtype=torch.int32),
+                                dropout_rate=rate, seed=torch.tensor([seed], dtype=torch.int32),
+                                block_kv=block_kv)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2 * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(m.numpy(), want_m, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(l.numpy(), want_l, atol=0, rtol=1e-4)
+
+
 @pytest.mark.parametrize("seed", [0, -123456789, 2**31 - 1])
 def test_dropout_mask_is_the_tpu_packages(seed):
     """The mask the plain versions regenerate, (B, H, L, L) at the
