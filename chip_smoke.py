@@ -31,7 +31,15 @@ full width with random weights from seeds:
   against CPU and bf16 against fp32 at 2 x 2 s, on the single-KV-block route
   and again on the general route (``DPHUBERT_WAVLM_SINGLE_BLOCK=0``), then
   timed in bf16 at B = 16 x 15 s with dropout on; and the WavLM recipe
-  through the CLIs (stage 1, prune, final distill, export, serving).
+  through the CLIs (stage 1, prune, final distill, export, serving);
+* wav2vec 2.0 Large (``run_large.sh``): a seeded ``wav2vec2_large`` written
+  as a fairseq checkpoint and converted back with ``convert_from_fairseq``
+  bit for bit, then served; ``wavlm_large`` served; the packed kernels at
+  the Large step's shape (12 clips, 16 heads); the Large stage-1 step with
+  per-layer remat held against the step without it (fp32, dropout on, the
+  same generator seed), then both timed in bf16 at B = 12 x 15 s;
+* the recipe script ``run_torch.sh`` itself, on the card, and its exported
+  checkpoint served.
 
 Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
@@ -47,8 +55,8 @@ to 0 just before the path and read just after, exactly what the routing
 rule predicts).  Each phase prints JSON lines; any failure raises and the
 script exits non-zero.  The last three lines are the card's name and power
 limit as nvidia-smi prints them, the kernels line, and ``{"ok": true,
-"device": {...}}``.  The pipeline's files go to ``build/smoke_pipeline/``
-and are removed at the end.
+"device": {...}}``.  The pipelines' and the Large phases' files go to
+``build/smoke_*/`` and are removed at the end.
 
 fp32 on the card is compared at full fp32: TF32 is switched off for matmuls
 and cuDNN convolutions below, and the matmul precision is "highest".
@@ -80,6 +88,7 @@ from dphubert_torch.models.hardconcrete import EPS
 from dphubert_torch.ops import _build
 from dphubert_torch.ops.attention_common import kernel_body
 from dphubert_torch.ops.mask_readout import backward_mask_readout, forward_mask_readout
+from dphubert_torch.cli import convert_from_fairseq as cli_convert_from_fairseq
 from dphubert_torch.cli import distill as cli_distill
 from dphubert_torch.cli import final_distill as cli_final_distill
 from dphubert_torch.cli import load_dpmodel as cli_load_dpmodel
@@ -98,6 +107,7 @@ from dphubert_torch.ops.flash_attention import (
 from dphubert_torch.ops.packed_attention import (
     _launch_fwd,
     packed_attention,
+    packed_num_groups,
     packed_attention_bwd_dkv,
     packed_attention_bwd_dq,
     packed_attention_bwd_reference,
@@ -226,6 +236,16 @@ FINAL_B = 5
 R2_CONFIG = REPO / "docs" / "pruned_config_r2.json"
 WAVLM_PRUNED_CONFIG = REPO / "docs" / "convergence_wavlm_r4_pruned_config.json"
 WAVLM_GENERAL_BLOCK_KV = 128  # an explicit block_kv < Lp: the general route
+# run_large.sh's stage 1: wav2vec 2.0 Large (24 layers, 1024 wide, 16 heads
+# of 64), six distill groups, B = 12 clips of 15 s (180 s a batch)
+LARGE_B = 12
+LARGE_GROUPS = ((0,), (4, 8, 12, 16, 20, 24))
+LARGE_HEADS = 16
+LARGE_DIR = REPO / "build" / "smoke_large"
+# remat against plain, fp32 on the card, the same generator seed: every
+# gradient within 1e-4 of its norm (a dropout mask replayed wrongly moves one
+# by O(1); the two differ only where cuDNN's backward sums in another order)
+REMAT_GRAD_TOL = 1e-4
 
 
 def r2_all_attention_config() -> dict:
@@ -493,42 +513,47 @@ def backward_rows(layout, common, dims, args, kw, outputs, plain_ms, library) ->
     return rows
 
 
-def phase_mask_readout(layout: str, path: str) -> None:
+def phase_mask_readout(layout: str, path: str, B: int = 2, H: int = 12,
+                       cases=((torch.bfloat16, 200), (torch.float32, 200),
+                              (torch.float32, 749))) -> None:
     """The dropout mask read out of a layout's backward entries on the card
     (``backward_mask_readout``: dq, dk and dv, and for WavLM's single route
-    dbias, 2 x 12 heads of 64, out = 0), bit for bit, through both bodies:
-    bf16 (wgmma) and fp32 (CUDA cores) at L = 200, fp32 also at the stage-1
-    L = 749.  Fails on any flipped bit."""
-    for dtype, L in ((torch.bfloat16, 200), (torch.float32, 200), (torch.float32, 749)):
-        found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), L=L)
+    dbias, B x H heads of 64, out = 0), bit for bit, through both bodies:
+    by default bf16 (wgmma) and fp32 (CUDA cores) at L = 200, fp32 also at
+    the stage-1 L = 749 (bf16 holds the readout's codes up to L = 256).
+    Fails on any flipped bit."""
+    for dtype, L in cases:
+        found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), B=B, H=H, L=L)
         flipped = {f"{what} seed {seed}": int((got != want).sum().item())
                    for seed, what, got, want in found}
         body = (wavlm_kernel_body("wavlm_attention_bwd_fused", dtype, 64) if layout == "wavlm"
                 else kernel_body(dtype, 64))
         row = {"phase": "mask_readout", "entry": "backward", "path": path, "layout": layout,
                "dtype": dtype_name(dtype), "body": body,
-               "shape_BHLD": [2, 12, L, 64], "flipped_bits": flipped}
+               "shape_BHLD": [B, H, L, 64], "flipped_bits": flipped}
         emit(row)
         check(sum(flipped.values()) == 0, f"{layout} backward mask readout: {row}")
 
 
-def phase_forward_mask_readout(layout: str, path: str) -> None:
+def phase_forward_mask_readout(layout: str, path: str, B: int = 2, H=None,
+                               cases=((torch.bfloat16, 200), (torch.float32, 200))) -> None:
     """The dropout mask read out of a layout's forward entry on the card
-    (``forward_mask_readout``: q = k = 0, coded value rows, 2 x 12 heads of
-    64, 11 for flash; for WavLM a zero bias, both entries: the single one
-    and the general one at block_kv 128), bit for bit, through both bodies
-    at L = 200: bf16 (wgmma, every accumulator element's (row, column)) and
-    fp32 (CUDA cores).  Fails on any flipped bit, or on an l other than L."""
-    H = 11 if layout == "flash" else 12
-    L = 200
+    (``forward_mask_readout``: q = k = 0, coded value rows, B x H heads of
+    64, by default 2 x 12, 11 for flash; for WavLM a zero bias, both
+    entries: the single one and the general one at block_kv 128), bit for
+    bit, through both bodies, by default at L = 200: bf16 (wgmma, every
+    accumulator element's (row, column)) and fp32 (CUDA cores).  Fails on
+    any flipped bit, or on an l other than L."""
+    if H is None:
+        H = 11 if layout == "flash" else 12
     entries = {"packed": ((None, "packed_attention_fwd"),),
                "flash": ((None, "flash_attention_fwd"),),
                "wavlm": ((None, "wavlm_attention_fwd"),
                          (WAVLM_GENERAL_BLOCK_KV, "wavlm_attention_fwd_general"))}[layout]
     for block_kv, entry in entries:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, L in cases:
             n = WRAPPERS[entry].launches
-            found = forward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), H=H, L=L,
+            found = forward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), B=B, H=H, L=L,
                                          block_kv=block_kv)
             flipped = {f"seed {seed}": int((got != want).sum().item())
                        for seed, got, want, _ in found}
@@ -537,7 +562,7 @@ def phase_forward_mask_readout(layout: str, path: str) -> None:
                     else kernel_body(dtype, 64))
             row = {"phase": "mask_readout", "entry": "forward", "path": path, "layout": layout,
                    "kernel": entry, "dtype": dtype_name(dtype), "body": body,
-                   "shape_BHLD": [2, H, L, 64], "flipped_bits": flipped, "l_is_L": l_ok}
+                   "shape_BHLD": [B, H, L, 64], "flipped_bits": flipped, "l_is_L": l_ok}
             emit(row)
             check(sum(flipped.values()) == 0 and l_ok, f"{layout} forward mask readout: {row}")
             check(WRAPPERS[entry].launches == n + len(found),
@@ -621,26 +646,28 @@ def phase_kernels(spec) -> dict:
 
 
 def _train_shape_cases(spec):
-    """(label, B, L, lengths): the distill step's shape (no lengths, as the
-    training batches) and the serving path's masked batch 1."""
+    """(label, B, L, H, lengths): the distill step's shape (no lengths, as
+    the training batches) and the serving path's masked batch 1."""
     L_train = int(frames(spec, [TRAIN_SECONDS])[0])
     L_masked = int(output_lengths(spec, torch.tensor([16 * SR]))[0])
     masked = frames(spec, BATCH1_SECONDS).to(torch.int32).cuda()
-    return [("train", TRAIN_B, L_train, None), ("masked", len(BATCH1_SECONDS), L_masked, masked)]
+    return [("train", TRAIN_B, L_train, 12, None),
+            ("masked", len(BATCH1_SECONDS), L_masked, 12, masked)]
 
 
-def phase_train_kernels(spec) -> dict:
+def phase_train_kernels(spec, cases=None, dtypes=(torch.float32, torch.bfloat16),
+                        path: str = "train") -> dict:
     """The training path's kernels against their plain versions: the
     forward with dropout 0.1, dq and dkv, at the distill step's shape and at
-    a masked shape, in fp32 and bf16."""
+    a masked shape (``cases``: label, B, L, H, lengths), in ``dtypes``."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    H, D = 12, 64
+    D = 64
     scale = D ** -0.5
     seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
-    kw = dict(num_heads=H, scale=scale, dropout_rate=DROPOUT, seed=seed)
-    for label, B, L, lengths in _train_shape_cases(spec):
-        for dtype in (torch.float32, torch.bfloat16):
+    for label, B, L, H, lengths in cases or _train_shape_cases(spec):
+        kw = dict(num_heads=H, scale=scale, dropout_rate=DROPOUT, seed=seed)
+        for dtype in dtypes:
             qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(dtype)
             dout = torch.randn(B, L, H * D, device="cuda", generator=gen).to(dtype)
             q, k, v = qkv.split(H * D, dim=-1)
@@ -649,7 +676,7 @@ def phase_train_kernels(spec) -> dict:
                 return t.view(B, L, H, D).transpose(1, 2)
 
             mask = None if lengths is None else key_mask(lengths, L)
-            common = {"path": "train", "case": label, "dtype": dtype_name(dtype),
+            common = {"path": path, "case": label, "dtype": dtype_name(dtype),
                       "shape_BLHD": [B, L, H, D],
                       "lengths": None if lengths is None else lengths.tolist(),
                       "dropout": DROPOUT}
@@ -688,8 +715,9 @@ def phase_train_kernels(spec) -> dict:
             results.update({(name, label, dtype): row for name, row in rows.items()})
             del qkv, dout, out, m, l, dq, dk, dv, di, wq, wk, wv
             torch.cuda.empty_cache()
-    phase_mask_readout("packed", "train")
-    phase_forward_mask_readout("packed", "train")
+    if cases is None:
+        phase_mask_readout("packed", "train")
+        phase_forward_mask_readout("packed", "train")
     return results
 
 
@@ -1016,10 +1044,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def model_launches(spec, L: int, backward: bool) -> dict:
+def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
     """Kernel launches of one pass of a model at L frames, from the routing
     rules: a forward per attention layer, and its backward kernels with
-    ``backward``.  A WavLM model whose layer 0 keeps its attention (and so
+    ``backward``; with ``remat`` (and ``backward``) each layer's forward
+    runs again in the backward's recompute.  A WavLM model whose layer 0 keeps its attention (and so
     the bias table) takes the WavLM kernels in every attention layer, on
     the route ``wavlm_route`` gives (read at the call, as the model reads
     it); every other layer takes the packed or flash route."""
@@ -1039,7 +1068,7 @@ def model_launches(spec, L: int, backward: bool) -> dict:
             route = attention_route(L, layer.attention.num_heads, layer.attention.head_dim)
             fwd, bwd = f"{route}_attention_fwd", (f"{route}_attention_bwd_dq",
                                                   f"{route}_attention_bwd_dkv")
-        counts[fwd] += 1
+        counts[fwd] += 2 if backward and remat else 1
         if backward:
             for name in bwd:
                 counts[name] += 1
@@ -1634,6 +1663,280 @@ def phase_wavlm_pipeline() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: wav2vec 2.0 Large (run_large.sh): fairseq import, serving, the
+# stage-1 step with and without remat; then run_torch.sh itself
+# ---------------------------------------------------------------------------
+
+
+# our names -> fairseq's: the inverse of interop/hf.py's fairseq renames
+_TO_FAIRSEQ = (
+    ("encoder.feature_projection.projection.", "post_extract_proj."),
+    ("encoder.feature_projection.layer_norm.", "layer_norm."),
+    ("encoder.transformer.pos_conv_embed.conv.", "encoder.pos_conv.0."),
+    ("encoder.transformer.layer_norm.", "encoder.layer_norm."),
+    ("encoder.transformer.layers.", "encoder.layers."),
+)
+
+
+def to_fairseq(sd: dict) -> dict:
+    """A state dict in our names -> a fairseq wav2vec 2.0 checkpoint's
+    ``model`` entry (``dummy_weight``, which fairseq does not have, left
+    out)."""
+    out = {}
+    for k, v in sd.items():
+        if k == "feature_extractor.dummy_weight":
+            continue
+        parts = k.split(".")
+        if k.startswith("feature_extractor.conv_layers."):
+            sub = "0" if parts[3] == "conv" else "2"
+            out[f"feature_extractor.conv_layers.{parts[2]}.{sub}.{parts[-1]}"] = v
+            continue
+        for ours, theirs in _TO_FAIRSEQ:
+            if k.startswith(ours):
+                k = theirs + k[len(ours):]
+                break
+        if k.startswith("encoder.layers."):
+            k = k.replace(".attention.", ".self_attn.")
+            k = k.replace(".layer_norm.", ".self_attn_layer_norm.")
+            k = k.replace(".feed_forward.intermediate_dense.", ".fc1.")
+            k = k.replace(".feed_forward.output_dense.", ".fc2.")
+        out[k] = v
+    return out
+
+
+def phase_large_kernels(spec) -> dict:
+    """The packed kernels at the Large stage-1 shape: B = 12 clips of 15 s
+    (L = 749), 16 heads of 64 (two head groups in the TPU package's
+    routing, a shape no earlier path ran), bf16 with dropout 0.1, against
+    their plain versions and timed beside their bound and the library;
+    then the dropout mask read out of the forward and the backward pair at
+    12 x 16 heads through both bodies (bf16 at L = 200, where its codes
+    survive; fp32 at L = 749)."""
+    L = int(frames(spec, [TRAIN_SECONDS])[0])
+    check(packed_num_groups(L, LARGE_HEADS, 64) == 2,
+          f"Large: packed_num_groups({L}, 16, 64) = {packed_num_groups(L, LARGE_HEADS, 64)}")
+    rows = phase_train_kernels(spec, cases=[("large_train", LARGE_B, L, LARGE_HEADS, None)],
+                               dtypes=(torch.bfloat16,), path="large_train")
+    readout = ((torch.bfloat16, 200), (torch.float32, L))
+    phase_mask_readout("packed", "large_train", B=LARGE_B, H=LARGE_HEADS, cases=readout)
+    phase_forward_mask_readout("packed", "large_train", B=LARGE_B, H=LARGE_HEADS, cases=readout)
+    return rows
+
+
+def phase_large_convert():
+    """A seeded ``wav2vec2_large`` written as a fairseq checkpoint (``{"model":
+    state dict in fairseq's names}``), converted with ``convert_from_fairseq``
+    (bit for bit the original, ``dummy_weight`` from its fresh init), the
+    converted teacher served (``phase_slice``: exact launches per batch,
+    fp32 card vs CPU per layer within 1e-3, bf16 vs fp32), and
+    ``wavlm_large`` served the same way.  The HuggingFace import needs
+    ``transformers``, which this host lacks: the CPU tests hold it.
+    Returns (the converted checkpoint's path, the Large spec)."""
+    shutil.rmtree(LARGE_DIR, ignore_errors=True)
+    LARGE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    original = pt.wav2vec2_large(device="cpu", generator=torch.Generator().manual_seed(20))
+    sd = original.state_dict()
+    fairseq_ckpt, converted = LARGE_DIR / "wav2vec2_large_fairseq.pt", LARGE_DIR / "wav2vec2_large.pth"
+    torch.save({"model": to_fairseq(sd)}, fairseq_ckpt)
+    cli_convert_from_fairseq.cli_main(["--ckpt", str(fairseq_ckpt), "--arch", "wav2vec2_large",
+                                       "--out", str(converted)])
+    back = load_checkpoint(converted)
+    differ = sorted(k for k, v in sd.items()
+                    if k not in back["state_dict"] or not np.array_equal(back["state_dict"][k],
+                                                                         v.numpy()))
+    check(set(back["state_dict"]) == set(sd) and not differ,
+          f"fairseq round trip: {len(differ)} tensors differ: {differ[:5]}")
+    check(back["config"] == original.config, "fairseq round trip: the config differs")
+    convert_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in sd.values())
+    spec = original.spec
+    del original, sd, back
+    fairseq_ckpt.unlink()
+
+    teacher = load_model(converted, device="cuda")
+    served = phase_slice("wav2vec2_large_converted", teacher)
+    del teacher
+    torch.cuda.empty_cache()
+    wavlm = pt.wavlm_large(device="cuda", generator=torch.Generator().manual_seed(0))
+    check(wavlm.spec.is_wavlm and wavlm.spec.layers[0].attention.num_heads == LARGE_HEADS,
+          "wavlm_large: not a 16-head WavLM")
+    served_wavlm = phase_slice("wavlm_large", wavlm)
+    del wavlm
+    torch.cuda.empty_cache()
+    emit({"phase": "large_convert", "arch": "wav2vec2_large", "parameters": n_params,
+          "fairseq_round_trip_bit_for_bit": True, "convert_seconds": convert_s,
+          "fp32_card_vs_cpu_max_abs": served["fp32_card_vs_cpu_max_abs"],
+          "wavlm_large_fp32_card_vs_cpu_max_abs": served_wavlm["fp32_card_vs_cpu_max_abs"],
+          "hf_import": "held on the CPU by tests/test_torch_interop_hf.py (no transformers here)"})
+    return converted, spec
+
+
+def _large_models(converted):
+    """The converted Large teacher on the card and the gated student (its
+    config with all five prune flags, random weights, dropout on at the
+    preset's rates) on the CPU, for ``init_train_state`` to copy."""
+    teacher = load_model(converted, device="cuda")
+    student = pt.wav2vec2_model(device="cpu", generator=torch.Generator().manual_seed(21),
+                                **dict(teacher.config, **PRUNE_FLAGS))
+    return teacher, student
+
+
+def phase_large_remat_check(converted) -> dict:
+    """One Large stage-1 step (run_large.sh's distill groups, dropout on)
+    with remat and without, fp32 on the card at 2 clips of 2 s, from states
+    with the same generator seed: every gradient within REMAT_GRAD_TOL of
+    its norm (1e-6 of the global norm where it is 0), the metrics within
+    1e-6 relative, the generator's state afterwards identical, and the
+    launches exactly the plain pass's plus one forward per student
+    attention layer."""
+    teacher, student = _large_models(converted)
+    rng = np.random.default_rng(22)
+    batch = ((0.1 * rng.standard_normal((2, 32000))).astype(np.float32),
+             np.array([32000, 24000], np.int32))
+    L = int(frames(teacher.spec, [2.0])[0])
+    out = {}
+    for remat in (False, True):
+        cfg = DistillConfig(distill_layer_groups=LARGE_GROUPS, remat=remat)
+        state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=1024, seed=23,
+                                    device="cuda")
+        reset_launch_counts()
+        metrics, grads = make_grad_fn(teacher, cfg)(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = add_counts((1, model_launches(teacher.spec, L, False)),
+                          (1, model_launches(state.student.spec, L, True, remat=remat)))
+        check(counts == want, f"Large remat={remat}: launches {counts}, expected {want}")
+        out[remat] = ({k: v.item() for k, v in metrics.items()},
+                      {k: g.detach() for k, g in grads.items()},
+                      state.generator.get_state(), counts)
+        del state, grads
+    (m0, g0, gen0, c0), (m1, g1, gen1, c1) = out[False], out[True]
+    check(torch.equal(gen0, gen1), "Large remat: the generator's state differs after the step")
+    check(c1["packed_attention_fwd"] == c0["packed_attention_fwd"] + 24,
+          f"Large remat: forward launches {c0} -> {c1}")
+    for k in m0:
+        check(abs(m1[k] - m0[k]) <= 1e-6 * abs(m0[k]) + 1e-9,
+              f"Large remat: metric {k} {m1[k]} vs {m0[k]}")
+    global_norm = torch.cat([g.flatten() for g in g0.values()]).double().norm().item()
+    rel, zero = {}, {}
+    for k, g in g0.items():
+        norm, diff = g.double().norm().item(), (g1[k] - g).double().norm().item()
+        if norm <= 1e-6 * global_norm:
+            zero[k] = diff / global_norm
+            check(diff <= 1e-6 * global_norm, f"Large remat: zero gradient of {k}: {diff}")
+            continue
+        rel[k] = diff / norm
+        check(diff <= REMAT_GRAD_TOL * norm, f"Large remat: gradient of {k}: {rel[k]}")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    row = {"phase": "large_remat_check", "batch": "2 clips of 2 s, lengths (32000, 24000)",
+           "dtype": "float32", "L": L, "distill_layer_groups": LARGE_GROUPS,
+           "grad_rel_err_max": worst[0][1] if worst else 0.0, "grad_rel_err_worst3": worst,
+           "zero_grad_err_max_over_global_norm": max(zero.values(), default=0.0),
+           "n_params": len(g0), "tol": REMAT_GRAD_TOL, "generator_state_equal": True,
+           "loss": [m0["loss"], m1["loss"]], "launches": {"plain": c0, "remat": c1}}
+    emit(row)
+    del teacher, student, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_large_train(converted) -> dict:
+    """run_large.sh's stage-1 step on the card: the converted Large teacher,
+    the gated student, bf16, B = 12 clips of 15 s (L = 749) with dropout on,
+    a batch that stays on the card; timed without remat and with it (each
+    from a fresh state: median of 3 segments of 3 steps after 2 warm steps),
+    with ``max_memory_allocated`` and exactly 48 / 24 / 24 packed launches a
+    step (teacher 24 and student 24 forwards, 24 dq, 24 dkv) without remat
+    and 72 / 24 / 24 with it."""
+    teacher, student = _large_models(converted)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    T = int(TRAIN_SECONDS * SR)
+    batch = (torch.randn(LARGE_B, T, device="cuda", generator=gen), None)
+    L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
+    runs, total = {}, dict.fromkeys(WRAPPERS, 0)
+    for remat in (False, True):
+        cfg = DistillConfig(distill_layer_groups=LARGE_GROUPS, compute_dtype="bfloat16",
+                            remat=remat)
+        state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=1024, seed=25,
+                                     device="cuda")
+        per_step = add_counts((1, model_launches(teacher.spec, L, False)),
+                              (1, model_launches(state.student.spec, L, True, remat=remat)))
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update(packed_attention_fwd=72 if remat else 48, packed_attention_bwd_dq=24,
+                    packed_attention_bwd_dkv=24)
+        check(per_step == want, f"Large remat={remat}: launches per step {per_step}")
+        label = "large_train_remat" if remat else "large_train"
+        state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
+                                       per_step, LARGE_B * TRAIN_SECONDS)
+        runs[label] = fields
+        total = {k: total[k] + fields["launches"][k] for k in total}
+        emit({"phase": label, "model": "wav2vec2_large teacher (converted from fairseq), "
+                                        "gated wav2vec2_large student",
+              "remat": remat, "distill_layer_groups": LARGE_GROUPS, "batch": [LARGE_B, T],
+              "L": L, **fields})
+        del state, tx
+        torch.cuda.empty_cache()
+    plain, remat_ = runs["large_train"], runs["large_train_remat"]
+    emit({"phase": "large_train_summary",
+          "step_s": {"plain": plain["step_s"], "remat": remat_["step_s"]},
+          "remat_time_ratio": remat_["step_s"] / plain["step_s"],
+          "peak_memory_bytes": {"plain": plain["peak_memory_bytes"],
+                                "remat": remat_["peak_memory_bytes"]}})
+    del teacher, student
+    torch.cuda.empty_cache()
+    return {"launches": total, **runs}
+
+
+def phase_recipe_driver() -> dict:
+    """``bash run_torch.sh`` on the card at Base width, on the corpus of
+    ``phase_pipeline`` (15 + 5 clips on the loader's top rung) with a
+    random ``hubert_base`` teacher checkpoint: the recipe's defaults
+    (DEVICE=cuda, 160 s a batch, bf16) with the update counts cut to 3 and
+    2.  Each stage is a process of its own (its launches are not counted
+    here; ``python`` is this interpreter); it must exit 0, and the exported
+    ``dphubert.pth`` is then served here with its launches counted."""
+    pipe_dir = REPO / "build" / "smoke_recipe_driver"
+    rng = np.random.default_rng(26)
+    t0 = time.perf_counter()
+    root, tsv = write_corpus(pipe_dir, rng)
+    teacher = pt.hubert_base(device="cpu", generator=torch.Generator().manual_seed(0))
+    teacher_ckpt = pipe_dir / "hubert_base_teacher.pth"
+    save_checkpoint(teacher_ckpt, teacher.config, teacher.state_dict())
+    spec_t = teacher.spec
+    del teacher
+    # the script calls `python`: this interpreter (a wrapper, not a link,
+    # so that a virtual environment's packages come with it)
+    bin_dir = pipe_dir / "bin"
+    bin_dir.mkdir()
+    (bin_dir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bin_dir / "python").chmod(0o755)
+    exp = pipe_dir / "exp"
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+               PYTHONPATH=str(REPO), TSV_DIR=str(tsv), TRAIN_SUBSET="train100",
+               TEACHER_CKPT=str(teacher_ckpt), MAX_UPDATES="3", FINAL_MAX_UPDATES="2",
+               LOG_INTERVAL="1", DEVICE="cuda", EXP_DIR=str(exp))
+    proc = subprocess.run(["bash", str(REPO / "run_torch.sh")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    final = exp / "dphubert.pth"
+    check(proc.returncode == 0 and final.exists() and f"Done: {final}" in proc.stdout,
+          f"run_torch.sh exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    stage_lines = [line for line in proc.stdout.splitlines() if line.startswith("[run_torch.sh]")]
+    L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
+    stages = Stages(spec_t, L, valid_batches=1)
+    stages.serve(final, root, rng)
+    row = {"phase": "recipe_driver", "script": "run_torch.sh", "exit": proc.returncode,
+           "seconds": seconds, "stages": stage_lines,
+           "load_dpmodel": [line for line in proc.stdout.splitlines()
+                            if line.startswith(("Loaded", "extract_features"))],
+           "launches": stages.total}
+    emit(row)
+    shutil.rmtree(pipe_dir, ignore_errors=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1692,6 +1995,21 @@ def main() -> int:
     path_launches["wavlm_train"] = phase_train("wavlm")["launches"]
     path_launches["wavlm_pipeline"] = phase_wavlm_pipeline()["launches"]
 
+    # path 5: wav2vec 2.0 Large (run_large.sh): the packed kernels at its
+    # shape, the fairseq import and serving (and wavlm_large served), the
+    # stage-1 step with remat against without, both timed; then the recipe
+    # script run_torch.sh itself
+    reset_launch_counts()
+    converted, large_spec = phase_large_convert()
+    path_launches["large_serve"] = launch_counts()
+    large_kernels = phase_large_kernels(large_spec)
+    check_launches = phase_large_remat_check(converted)["launches"]
+    path_launches["large_remat_check"] = add_counts((1, check_launches["plain"]),
+                                                    (1, check_launches["remat"]))
+    path_launches["large_train"] = phase_large_train(converted)["launches"]
+    shutil.rmtree(LARGE_DIR, ignore_errors=True)
+    path_launches["recipe_driver"] = phase_recipe_driver()["launches"]
+
     bf16 = torch.bfloat16
     rows = {
         "packed_attention_fwd": train_kernels[("packed_attention_fwd", "train", bf16)],
@@ -1708,6 +2026,9 @@ def main() -> int:
                   "flash_attention_fwd": kernels[("flash_attention_fwd", bf16)],
                   "wavlm_attention_fwd": wavlm_kernels[("wavlm_attention_fwd", "serve_batch2",
                                                         bf16)]}
+    large_rows = {("large_train", name): large_kernels[(name, "large_train", bf16)]
+                  for name in ("packed_attention_fwd", "packed_attention_bwd_dq",
+                               "packed_attention_bwd_dkv")}
     line = []
     for name, r in rows.items():
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
@@ -1724,6 +2045,13 @@ def main() -> int:
         for key in ("ms_no_dropout", "achieved_tflops", "library_dropout_ms"):
             if key in r:
                 entry[key] = r[key]
+        if ("large_train", name) in large_rows:  # the Large step's shape
+            lr = large_rows[("large_train", name)]
+            entry["large"] = {k: lr[k] for k in ("ms", "ms_no_dropout", "plain_ms", "library_ms",
+                                                 "library_dropout_ms", "bound_ms", "bound_by",
+                                                 "max_abs_err", "achieved_tflops", "body")
+                              if k in lr}
+            entry["large"]["shape"] = lr["shape_BLHD"]
         if name in serve_rows:  # its serving row, without dropout
             sr = serve_rows[name]
             entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",

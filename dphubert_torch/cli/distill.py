@@ -11,9 +11,10 @@ the work is ported, plus ``--device`` (default ``cuda``)::
         --exp_dir exp/stage1 --max_updates 50000 ...
 
 Exit codes: 0 done (``<exp_dir>/ckpts/distilled.pth`` written), 75 stopped
-by a SIGTERM (resumable), 76 stopped by the ``DPHUBERT_DEADLINE_TS``
-deadline (resumable; a recipe script must not resume into the same
-deadline).  Resume with ``--resume_checkpoint <exp_dir>/ckpts/last.pt``.
+by a SIGTERM or the RSS watchdog (``DPHUBERT_MAX_RSS_GB``; resumable), 76
+stopped by the ``DPHUBERT_DEADLINE_TS`` deadline (resumable; a recipe
+script must not resume into the same deadline).  Resume with
+``--resume_checkpoint <exp_dir>/ckpts/last.pt``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,11 @@ def add_common_training_args(parser: ArgumentParser) -> None:
     parser.add_argument("--accum_grad", default=1, type=int)
     parser.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                         help="Compute dtype (parameters stay fp32).")
+    # the TPU package's --scan_layers (a lax.scan that shrank the compiled
+    # program of the Large family) has no counterpart in eager PyTorch
+    parser.add_argument("--remat", action="store_true",
+                        help="Per-layer activation checkpointing of the student "
+                        "(less activation memory for one more student forward).")
     parser.add_argument("--teacher_ckpt", type=pathlib.Path, required=True)
     parser.add_argument("--student_ckpt", type=pathlib.Path, required=True)
     parser.add_argument("--distill_layers", default="0.4,8,12", type=str)
@@ -114,6 +120,7 @@ def run_train(args, use_reg: bool = True):
         target_sparsity=getattr(args, "target_sparsity", 0.0),
         sparsity_warmup_updates=getattr(args, "sparsity_warmup_updates", 1),
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
+        remat=args.remat,
         accum_grad=args.accum_grad,
     )
 

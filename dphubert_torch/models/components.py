@@ -20,8 +20,10 @@ Training (the distill step) passes a ``torch.Generator`` for dropout and a
 nested dict of HardConcrete gates, keyed as the TPU package's gate tree
 (``models/gates.py``); both are applied where the TPU package applies them.
 With no generator there is no dropout, and with no gates none is applied,
-as in the TPU package's eval path.  LayerDrop is not ported (it only acts in
-``forward(training=True)``, which raises).
+as in the TPU package's eval path.  ``remat`` checkpoints each encoder
+layer (``remat_layer``), as the TPU package checkpoints each layer.
+LayerDrop is not ported (it only acts in ``forward(training=True)``, which
+raises).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import (
@@ -594,6 +597,42 @@ class EncoderLayer(nn.Module):
         return x, position_bias
 
 
+def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias):
+    """``layer(x, lengths, gates, generator, position_bias)`` under
+    per-layer activation checkpointing (the TPU package's checkpoint
+    around each layer): the layer's activations are dropped after the
+    forward and recomputed in the backward.
+
+    Non-reentrant checkpointing, so the gradient still reaches tensors the
+    layer reads from outside its arguments (the gates, which depend on
+    ``log_alpha``).  The layer draws its dropout masks and its attention
+    kernels' seeds from ``generator``, an explicit generator that
+    ``checkpoint`` does not replay; so its state is taken before the
+    forward, set again for the recompute, and the state the backward found
+    is put back afterwards (also when the recompute stops early): the
+    recompute draws exactly the forward's numbers, and the generator ends
+    the step where a step without remat leaves it.  WavLM's position bias
+    is an output of layer 0's checkpointed call and an input of every later
+    one, so every layer's bias gradient still flows into layer 0's table."""
+    state = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(x, position_bias):
+        calls[0] += 1
+        if state is None or calls[0] == 1:
+            return layer(x, lengths, gates, generator, position_bias)
+        found = generator.get_state()
+        generator.set_state(state)
+        try:
+            return layer(x, lengths, gates, generator, position_bias)
+        finally:
+            generator.set_state(found)
+
+    # every random number of the layer comes from ``generator``
+    return torch.utils.checkpoint.checkpoint(run, x, position_bias, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 class Transformer(nn.Module):
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -612,17 +651,18 @@ class Transformer(nn.Module):
         return _dropout(x, self.dropout, generator)
 
     def get_intermediate_outputs(self, x, lengths, num_layers: Optional[int] = None,
-                                 gates=None, generator=None):
+                                 gates=None, generator=None, remat: bool = False):
         """Every layer's hidden state (no final LayerNorm), never applying
         LayerDrop: distillation sees all layers, as in the TPU package.
         WavLM's position bias, computed in layer 0, is threaded through, so
-        every layer's bias gradient flows back into layer 0's table."""
+        every layer's bias gradient flows back into layer 0's table.
+        ``remat`` checkpoints each layer (``remat_layer``)."""
         x = self._preprocess(x, generator)
         outs: List[torch.Tensor] = []
         position_bias = None
         for i, layer in enumerate(self.layers):
-            x, position_bias = layer(x, lengths, _gate(gates, "layers", str(i)), generator,
-                                     position_bias)
+            args = (x, lengths, _gate(gates, "layers", str(i)), generator, position_bias)
+            x, position_bias = remat_layer(layer, *args) if remat else layer(*args)
             outs.append(x)
             if num_layers is not None and len(outs) >= num_layers:
                 break
@@ -659,11 +699,11 @@ class Encoder(nn.Module):
         return x, lengths.to(torch.int32)
 
     def extract_features(self, features, lengths, num_layers: Optional[int] = None,
-                         gates=None, generator=None):
+                         gates=None, generator=None, remat: bool = False):
         """``[projected input] + per-layer outputs``."""
         x, lengths = self._preprocess(features, lengths, generator)
         return [x] + self.transformer.get_intermediate_outputs(
-            x, lengths, num_layers, gates, generator
+            x, lengths, num_layers, gates, generator, remat
         )
 
     def forward(self, features, lengths):

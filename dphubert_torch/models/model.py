@@ -70,6 +70,7 @@ class Wav2Vec2Model(nn.Module):
         gates: Optional[dict] = None,
         training: bool = False,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         """Per-layer hidden states (index 0 = projected CNN features) and
         the valid output lengths.
@@ -79,6 +80,8 @@ class Wav2Vec2Model(nn.Module):
         None for no gates.  ``training=True`` turns dropout on, drawn from
         ``generator`` (on the waveforms' device; no generator, no dropout, as
         the TPU package without an rng); a gated spec must then get gates.
+        ``remat`` checkpoints each encoder layer (activations recomputed in
+        the backward; the feature extractor is not checkpointed).
         LayerDrop never applies here: distillation sees every layer."""
         if gates is None and training and has_gates(self.spec):
             raise ValueError("spec has HardConcrete gates; pass gates= (see sample_gates)")
@@ -86,7 +89,8 @@ class Wav2Vec2Model(nn.Module):
         if self.spec.normalize_waveform:
             waveforms = components.normalize_waveform(waveforms, lengths)
         x, lengths = self.feature_extractor(waveforms, lengths, gates)
-        return self.encoder.extract_features(x, lengths, num_layers, gates, generator), lengths
+        return (self.encoder.extract_features(x, lengths, num_layers, gates, generator, remat),
+                lengths)
 
     def forward(
         self,

@@ -16,9 +16,12 @@ Entry points: ``init_train_state``, ``make_train_step`` and
 ``make_eval_step`` (and ``make_grad_fn``, the step without its update).
 The state's student is a copy of the given module, and every one of its
 parameters trains, ``dummy_weight`` included, as every leaf of the TPU
-package's parameter tree does (ROADMAP queue 3).  The TPU package's
-``remat``, ``scan_layers`` and ``steps_per_call`` options have no
-counterpart yet (ROADMAP queue 1).
+package's parameter tree does (ROADMAP queue 3).  ``remat`` checkpoints
+each of the student's encoder layers (``components.remat_layer``); the
+teacher runs under ``no_grad`` and keeps nothing to checkpoint.  The TPU
+package's ``scan_layers`` shrank its compiled program and has no
+counterpart in eager PyTorch; its ``steps_per_call`` is not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ class DistillConfig:
     target_sparsity: float = 0.75
     sparsity_warmup_updates: int = 5000
     compute_dtype: str = "float32"  # "bfloat16" on the card
+    remat: bool = False  # per-layer activation checkpointing for the student
     accum_grad: int = 1  # micro-batch accumulation (reference --accum_grad)
 
 
@@ -183,7 +187,7 @@ def _distill_forward(teacher, student, cfg, original, params, batch, step, gener
     with torch.no_grad():
         teacher_hiddens, _ = teacher.extract_features(wave, lengths)
     student_hiddens, _ = student.extract_features(
-        wave, lengths, gates=gates, training=training, generator=generator,
+        wave, lengths, gates=gates, training=training, generator=generator, remat=cfg.remat,
     )
     loss_d, (l_mse, l_l1, l_cos) = distill_loss_unstacked(
         params["projs"], cfg.distill_mode, cfg.distill_layer_groups,

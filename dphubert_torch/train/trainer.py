@@ -13,14 +13,16 @@ final distill (``use_reg=False``, projections warm-started from stage 1) to
   mask;
 * validation runs at each epoch end, every ``val_interval`` micro-steps,
   and once on the final state of a completed run;
-* a SIGTERM, ``stop_at_step`` or the wall-clock deadline
-  ``DPHUBERT_DEADLINE_TS`` (unix seconds) checkpoints and stops; the reason
-  is returned through ``stop_info["why"]`` ("sigterm", "stop_at_step",
-  "deadline"), from which the CLIs choose their exit codes.
+* a SIGTERM, ``stop_at_step``, the RSS watchdog (the process's resident
+  memory past ``DPHUBERT_MAX_RSS_GB``, read every 100 steps) or the
+  wall-clock deadline ``DPHUBERT_DEADLINE_TS`` (unix seconds) checkpoints
+  and stops; the reason is returned through ``stop_info["why"]``
+  ("sigterm", "stop_at_step", "rss watchdog", "deadline"), from which the
+  CLIs choose their exit codes.
 
 Not ported yet (ROADMAP queue 1): the mesh and its tensor-parallel / FSDP
-layouts, ``steps_per_dispatch`` (a CUDA graph of K steps on the card), the
-RSS watchdog, orbax and the background saver.
+layouts, ``steps_per_dispatch`` (a CUDA graph of K steps on the card),
+orbax and the background saver.
 """
 
 from __future__ import annotations
@@ -49,6 +51,46 @@ from .distill_module import (
 from .projections import projections_from_state_dict, projections_to_state_dict
 
 SAMPLE_RATE = 16000
+RSS_CHECK_INTERVAL = 100  # steps between two reads of /proc/self/statm
+
+
+def _memory_budget_bytes() -> int:
+    """The RSS watchdog's memory budget: the smaller of the host's physical
+    RAM and the cgroup limit (in a container the OOM killer fires at the
+    cgroup limit, often far below the host's RAM); 0 if neither is known."""
+    budgets = []
+    try:
+        budgets.append(os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+    except (ValueError, OSError, AttributeError):
+        pass
+    for p in ("/sys/fs/cgroup/memory.max",  # cgroup v2
+              "/sys/fs/cgroup/memory/memory.limit_in_bytes"):  # cgroup v1
+        try:
+            with open(p) as f:
+                text = f.read().strip()
+            if text != "max":
+                budgets.append(int(text))
+        except (OSError, ValueError):
+            pass
+    return min(budgets) if budgets else 0
+
+
+def rss_limit_bytes() -> int:
+    """``DPHUBERT_MAX_RSS_GB`` (GB of 1e9 bytes; 0 disables the watchdog),
+    else 0.85 of ``_memory_budget_bytes``."""
+    limit = os.environ.get("DPHUBERT_MAX_RSS_GB")
+    if limit is not None:
+        return int(float(limit) * 1e9)
+    return int(_memory_budget_bytes() * 0.85)
+
+
+def _rss_bytes() -> Optional[int]:
+    """The process's resident set size, from /proc/self/statm."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
 
 
 class MetricLogger:
@@ -156,6 +198,26 @@ def train(
     # deadline.  0 or unset disables it.
     deadline_ts = float(os.environ.get("DPHUBERT_DEADLINE_TS", 0) or 0)
 
+    # RSS watchdog: a host-memory leak ends in the OOM killer's SIGKILL
+    # mid-step, losing everything since the last checkpoint; past the limit
+    # the run checkpoints and stops instead (the CLIs exit 75, which the
+    # recipe script resumes).  Read every RSS_CHECK_INTERVAL steps, counted
+    # from 0 in each process, so a resumed run reads at its first step.
+    rss_limit = rss_limit_bytes()
+    rss_last_check = 0
+
+    def _rss_exceeded(step: int) -> bool:
+        nonlocal rss_last_check
+        if not rss_limit or step - rss_last_check < RSS_CHECK_INTERVAL:
+            return False
+        rss_last_check = step
+        rss = _rss_bytes()
+        if rss is None or rss <= rss_limit:
+            return False
+        print(f"[train] rss {rss / 1e9:.1f} GB > limit {rss_limit / 1e9:.1f} GB: "
+              "checkpointing and exiting (resumable)", flush=True)
+        return True
+
     logger = MetricLogger(exp_dir, log_interval)
     step_fn = make_train_step(teacher, cfg, tx)
     eval_fn = make_eval_step(teacher, cfg) if valid_loader is not None else None
@@ -203,6 +265,8 @@ def train(
                     why = "sigterm"
                 elif stop_at_step is not None and prev_step < stop_at_step <= step:
                     why = "stop_at_step"
+                elif _rss_exceeded(step):
+                    why = "rss watchdog"
                 elif deadline_ts and time.time() >= deadline_ts:
                     why = "deadline"
                 if why:

@@ -1,0 +1,25 @@
+#!/bin/bash
+# wav2vec 2.0 Large compression recipe on one NVIDIA card (reference
+# run_large.sh:13-55; run_large.sh's environment over run_torch.sh):
+# the 24-layer 1024-wide teacher, six distill groups, the longer schedule
+# and 180 s of audio a batch.
+#
+# REMAT defaults to 0: on an H100 80GB HBM3 the Large stage-1 step at
+# B = 12 x 15 s in bf16 fits without per-layer activation checkpointing,
+# which would only add one student forward a step (PERF.md, "Large step").
+# Set REMAT=1 to trade that time for activation memory (a larger
+# SECONDS_PER_BATCH, or a smaller card).
+set -euo pipefail
+
+export TEACHER_CKPT=${TEACHER_CKPT:-pretrained/wav2vec2-large.hf.pth}
+export SECONDS_PER_BATCH=${SECONDS_PER_BATCH:-180}
+export EXP_DIR=${EXP_DIR:-exp/wav2vec2-large_sp0.75}
+
+TSV_DIR=${TSV_DIR:-data/librispeech} \
+TRAIN_SUBSET=${TRAIN_SUBSET:-train960} \
+DISTILL_LAYERS="0.4,8,12,16,20,24" \
+MAX_UPDATES=${MAX_UPDATES:-140000} WARMUP_UPDATES=${WARMUP_UPDATES:-42000} \
+FINAL_MAX_UPDATES=${FINAL_MAX_UPDATES:-70000} \
+FINAL_WARMUP_UPDATES=${FINAL_WARMUP_UPDATES:-14000} \
+REMAT=${REMAT:-0} \
+bash "$(dirname "$0")/run_torch.sh"

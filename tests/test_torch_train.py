@@ -155,9 +155,9 @@ def test_optimizer_matches_build_optimizer(weight_decay):
     assert float(t_params["lambdas.lambda1"]) != 0.0
 
 
-def _setup(use_reg: bool, accum_grad: int):
+def _setup(use_reg: bool, accum_grad: int, remat: bool = False):
     """Teacher and student in both packages, each package holding the same
-    weights.  The student has weights of its own: with the teacher's (as the
+    weights (``remat``: both steps checkpoint the student's layers).  The student has weights of its own: with the teacher's (as the
     TPU package's tests/test_train.py sets it up) many L1 residuals sit at
     rounding noise around 0, and their gradient is the sign of that noise in
     either package."""
@@ -169,7 +169,7 @@ def _setup(use_reg: bool, accum_grad: int):
     dcfg = j_dm.DistillConfig(
         distill_layer_groups=((0,), (1, 3)), warmup_updates=4, max_updates=20,
         sparsity_warmup_updates=5, target_sparsity=0.5, use_reg=use_reg,
-        accum_grad=accum_grad,
+        accum_grad=accum_grad, remat=remat,
     )
     j_state, j_tx = j_dm.init_train_state(student=js, student_params=sp, cfg=dcfg,
                                           teacher_embed_dim=64, rng=jax.random.key(42))
@@ -259,9 +259,18 @@ def test_entry_points_need_cuda_or_cpu_and_refuse_unported_options():
     assert state.student is not student  # a copy: the caller's module is left alone
     assert state.lambdas["lambda1"].item() == state.lambdas["lambda2"].item() == 0.0
     teacher = pt.wav2vec2_model(device="cpu", **_tiny_w2v2_config())
-    for option in ("remat", "scan_layers", "steps_per_call"):  # not ported: no such field
+    # scan_layers has no eager counterpart and steps_per_call is not ported:
+    # no such field
+    for option in ("scan_layers", "steps_per_call"):
         with pytest.raises(TypeError, match=option):
             make_train_step(teacher, DistillConfig(**{option: True}), tx)
+    # remat is ported: a step runs and advances the state
+    remat_cfg = DistillConfig(distill_layer_groups=((0,), (1, 3)), remat=True)
+    state, tx = init_train_state(student=student, cfg=remat_cfg, teacher_embed_dim=64,
+                                 device="cpu")
+    wave = np.random.default_rng(0).standard_normal((1, 4000)).astype(np.float32)
+    state, metrics = make_train_step(teacher, remat_cfg, tx)(state, (wave, None))
+    assert state.step == 1 and np.isfinite(metrics["loss"].item())
     # use_reg=False has no optimizer group for HardConcrete parameters
     with pytest.raises(ValueError, match="log_alpha"):
         init_train_state(student=student, cfg=DistillConfig(use_reg=False),

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's distill step on one card.
 
-    python3 tools/profile_torch_step.py [--model wavlm_base | --step final_distill]
-                                        [--steps 2] [--out PATH]
+    python3 tools/profile_torch_step.py [--model wavlm_base | wav2vec2_large [--remat]
+                                         | --step final_distill] [--steps 2] [--out PATH]
 
 Builds a step that ``chip_smoke.py`` drives, with random weights from seeds
 and dropout on: the stage-1 step (teacher ``hubert_base``, or
 ``wavlm_base`` for the DPWavLM step, the student its config with all five
 prune flags, ``DistillConfig`` defaults in bf16, B = 16 clips of 15 s on
-the card) or, with ``--step final_distill``, the final-distill step
+the card; ``wav2vec2_large``: run_large.sh's step, distill groups
+``((0,), (4, 8, 12, 16, 20, 24))`` at B = 12 clips of 15 s, with
+``--remat`` the student's layers checkpointed) or, with ``--step
+final_distill``, the final-distill step
 (teacher ``hubert_base``, the student ``docs/pruned_config_r2.json`` with
 every attention sublayer on, ``use_reg=False`` in bf16, B = 5 clips of
 249,920 samples: its 11- and 9-head layers take the flash route); warms it
@@ -80,7 +83,10 @@ def union_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("hubert_base", "wavlm_base"), default="hubert_base")
+    ap.add_argument("--model", choices=("hubert_base", "wavlm_base", "wav2vec2_large"),
+                    default="hubert_base")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint the student's layers (DistillConfig.remat)")
     ap.add_argument("--step", choices=("stage1", "final_distill"), default="stage1")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_torch_step.json"))
@@ -96,16 +102,22 @@ def main() -> int:
     if args.step == "stage1":
         student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(1),
                                     **dict(teacher.config, **PRUNE_FLAGS))
-        cfg = DistillConfig(compute_dtype="bfloat16")
-        shape = [16, 240000]
+        if args.model == "wav2vec2_large":
+            cfg = DistillConfig(distill_layer_groups=((0,), (4, 8, 12, 16, 20, 24)),
+                                compute_dtype="bfloat16", remat=args.remat)
+            shape = [12, 240000]
+        else:
+            cfg = DistillConfig(compute_dtype="bfloat16", remat=args.remat)
+            shape = [16, 240000]
     else:
         config = json.loads((REPO / "docs" / "pruned_config_r2.json").read_text())
         config["encoder_use_attention"] = [True] * config["encoder_num_layers"]
         student = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(7),
                                     **config)
-        cfg = DistillConfig(use_reg=False, compute_dtype="bfloat16")
+        cfg = DistillConfig(use_reg=False, compute_dtype="bfloat16", remat=args.remat)
         shape = [5, 249920]
-    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5)
+    state, tx = init_train_state(student=student, cfg=cfg,
+                                 teacher_embed_dim=teacher.spec.embed_dim, seed=5)
     del student
     step = make_train_step(teacher, cfg, tx)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -135,7 +147,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "model": args.model,
-        "step": args.step, "steps": args.steps, "batch": shape, "dtype": "bfloat16",
+        "step": args.step, "remat": args.remat, "steps": args.steps, "batch": shape,
+        "dtype": "bfloat16",
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_ms_per_step": kernel_ms,
