@@ -30,8 +30,10 @@ full width with random weights from seeds:
   stage-1 step (teacher ``wavlm_base``, the gated student) held card
   against CPU and bf16 against fp32 at 2 x 2 s, on the single-KV-block route
   and again on the general route (``DPHUBERT_WAVLM_SINGLE_BLOCK=0``), then
-  timed in bf16 at B = 16 x 15 s with dropout on; and the WavLM recipe
-  through the CLIs (stage 1, prune, final distill, export, serving);
+  timed in bf16 at B = 16 x 15 s with dropout on, on the single route and
+  then, in the same process with the same seeds, on the general one; and
+  the WavLM recipe through the CLIs (stage 1, prune, final distill, export,
+  serving);
 * wav2vec 2.0 Large (``run_large.sh``): a seeded ``wav2vec2_large`` written
   as a fairseq checkpoint and converted back with ``convert_from_fairseq``
   bit for bit, then served; ``wavlm_large`` served; the packed kernels at
@@ -67,6 +69,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -373,9 +376,10 @@ def _ptxas(report: str):
     return rows
 
 
-# instantiations per source; wavlm_attention: 18 CUDA-core (the forward and
-# fused bodies not for bf16 at D = 64) and the four tensor-core bodies
-SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 22))
+# instantiations per source; wavlm_attention: 15 CUDA-core (fp32 at D = 64
+# and 80, bf16 at 80: five each; bf16 at D = 64 reaches none) and the four
+# tensor-core bodies
+SOURCES = (("attention_fwd", 4), ("attention_bwd", 8), ("wavlm_attention", 19))
 
 
 def phase_card() -> str:
@@ -513,26 +517,43 @@ def backward_rows(layout, common, dims, args, kw, outputs, plain_ms, library) ->
     return rows
 
 
+# the backward entries a mask readout runs, by layout (and WavLM route)
+READOUT_ENTRIES = {
+    ("packed", "single"): ("packed_attention_bwd_dq", "packed_attention_bwd_dkv"),
+    ("flash", "single"): ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    ("wavlm", "single"): ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv"),
+    ("wavlm", "general"): ("wavlm_attention_bwd_dq", "wavlm_attention_bwd_dbias",
+                           "wavlm_attention_bwd_dkv_general"),
+}
+
+
 def phase_mask_readout(layout: str, path: str, B: int = 2, H: int = 12,
                        cases=((torch.bfloat16, 200), (torch.float32, 200),
-                              (torch.float32, 749))) -> None:
+                              (torch.float32, 749)), route: str = "single") -> None:
     """The dropout mask read out of a layout's backward entries on the card
-    (``backward_mask_readout``: dq, dk and dv, and for WavLM's single route
-    dbias, B x H heads of 64, out = 0), bit for bit, through both bodies:
+    (``backward_mask_readout``: dq, dk and dv, and for WavLM dbias, B x H
+    heads of 64, out = 0; for WavLM ``route`` picks the single pair or the
+    general dq, dbias and dkv entries), bit for bit, through both bodies:
     by default bf16 (wgmma) and fp32 (CUDA cores) at L = 200, fp32 also at
     the stage-1 L = 749 (bf16 holds the readout's codes up to L = 256).
-    Fails on any flipped bit."""
+    Fails on any flipped bit, or if the entries did not launch 3 times a
+    seed."""
+    entries = READOUT_ENTRIES[(layout, route)]
     for dtype, L in cases:
-        found = backward_mask_readout(layout, "cuda", dtype, (SEED, -2**31), B=B, H=H, L=L)
+        before = [WRAPPERS[e].launches for e in entries]
+        seeds = (SEED, -2**31)
+        found = backward_mask_readout(layout, "cuda", dtype, seeds, B=B, H=H, L=L, route=route)
         flipped = {f"{what} seed {seed}": int((got != want).sum().item())
                    for seed, what, got, want in found}
-        body = (wavlm_kernel_body("wavlm_attention_bwd_fused", dtype, 64) if layout == "wavlm"
-                else kernel_body(dtype, 64))
         row = {"phase": "mask_readout", "entry": "backward", "path": path, "layout": layout,
-               "dtype": dtype_name(dtype), "body": body,
-               "shape_BHLD": [B, H, L, 64], "flipped_bits": flipped}
+               "route": route, "kernels": list(entries), "dtype": dtype_name(dtype),
+               "body": kernel_body(dtype, 64), "shape_BHLD": [B, H, L, 64],
+               "flipped_bits": flipped}
         emit(row)
         check(sum(flipped.values()) == 0, f"{layout} backward mask readout: {row}")
+        check([WRAPPERS[e].launches - n for e, n in zip(entries, before)]
+              == [3 * len(seeds)] * len(entries),
+              f"{layout} {route} backward readout did not go through {entries}")
 
 
 def phase_forward_mask_readout(layout: str, path: str, B: int = 2, H=None,
@@ -811,10 +832,12 @@ def wavlm_flops(kind, B, L, H, D, lengths) -> float:
 
 def wavlm_bound_ms(kind, B, L, H, D, lengths, dtype):
     """Least time for one WavLM entry's work on these inputs:
-    ``wavlm_flops``; bytes: each input read once (q, out, dout over all
-    rows; k, v over the valid keys; the (H, L, valid) bias; gate, m, l, di)
-    and each output written once (fwd: out, m, l; fused: dq, dgate, dbias,
-    di; dq: dq, dgate, di; dbias: dbias; dkv: dk, dv)."""
+    ``wavlm_flops``; bytes: each input the entry reads, read once (q over
+    all rows; k, v over the valid keys; the (H, L, valid) bias; gate; fwd
+    nothing more; fused and dq: out, dout, m, l; dbias and dkv: dout, m, l
+    and the di the dq side wrote) and each output written once (fwd: out,
+    m, l; fused: dq, dgate, dbias, di; dq: dq, dgate, di; dbias: dbias;
+    dkv: dk, dv)."""
     es = torch.tensor([], dtype=dtype).element_size()
     kv = _valid_keys(lengths, B, L)
     rows, kv_rows = B * L * H * D * es, sum(kv) * H * D * es
@@ -823,7 +846,7 @@ def wavlm_bound_ms(kind, B, L, H, D, lengths, dtype):
         "fwd": 2 * rows + 2 * kv_rows + bias + stat + 2 * stat,
         "fused": 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat + H * L * L * 4,
         "dq": 3 * rows + 2 * kv_rows + bias + 3 * stat + rows + 2 * stat,
-        "dbias": 3 * rows + 2 * kv_rows + bias + 3 * stat + H * L * L * 4,
+        "dbias": 2 * rows + 2 * kv_rows + bias + 4 * stat + H * L * L * 4,
         "dkv": 2 * rows + 2 * kv_rows + bias + 4 * stat + 2 * kv_rows,
     }[kind]
     return _bound(wavlm_flops(kind, B, L, H, D, lengths), nbytes + 4 * B, dtype)
@@ -861,13 +884,14 @@ def phase_wavlm_kernels(spec) -> dict:
     lengths, forward only.  library = scaled_dot_product_attention with
     the materialised (B, H, L, L) mask gate * bias (+ the key mask), the
     mask built outside the timing; for the backward, its backward with the
-    mask needing a gradient.  The rows name the body (in bf16 both forwards
-    and the single backward pair: wgmma), carry the time without dropout
-    and the achieved TFLOP/s of the entry's function; in bf16 the general
-    forward's out, m and l equal the single one's bit for bit (one body),
-    and every backward entry's rerun must give the same bits.  Then the
-    dropout mask is read out of the single backward pair and of both
-    forward entries through both bodies."""
+    mask needing a gradient.  The rows name the body (in bf16 every entry:
+    wgmma), carry the time without dropout
+    and the achieved TFLOP/s of the entry's function; in bf16 (every entry
+    on the tensor cores) the general forward's out, m and l and the general
+    backward's dq, dgate, di, dbias, dk and dv equal the single route's bit
+    for bit (the same bodies), and every backward entry's rerun must give
+    the same bits.  Then the dropout mask is read out of both routes'
+    backward entries and of both forward entries through both bodies."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(12)
     D = 64
@@ -961,7 +985,8 @@ def phase_wavlm_kernels(spec) -> dict:
                     out_g, m_g, l_g = wavlm_attention_fwd_general(*args, lengths, **kw)
                     dq_g, dgate_g, di_g = wavlm_attention_bwd_dq(*args, out, dout, m, l, lengths,
                                                                  **kw)
-                    dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, lengths, **kw)
+                    dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, di_g, lengths,
+                                                        **kw)
                     dk_g, dv_g = wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g,
                                                                  lengths, **kw)
                     torch.cuda.synchronize()
@@ -970,12 +995,13 @@ def phase_wavlm_kernels(spec) -> dict:
                            "dk": (dk_g, dk), "dv": (dv_g, dv)}
                 vs_single = {n: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
                              for n, (a, b) in general.items()}
+                bits = {n: torch.equal(*pair) for n, pair in general.items()}
                 if dtype == torch.float32:
                     check(max(vs_single.values()) <= 1e-5,
                           f"wavlm general vs single entries, fp32: {vs_single}")
-                else:  # the same tensor-core forward body, in another block order
-                    check(all(torch.equal(*general[n]) for n in ("out", "m", "l")),
-                          f"wavlm general vs single forward, bf16, not bit for bit: {vs_single}")
+                else:  # the same tensor-core bodies (the forward in another block order)
+                    check(all(bits.values()),
+                          f"wavlm general vs single entries, bf16, not bit for bit: {bits}")
                 bound, by = wavlm_bound_ms("fwd", B, L, H, D, lengths, dtype)
                 ms = time_ms(lambda: wavlm_attention_fwd_general(*args, lengths, **kw))
                 row = {"phase": "kernel", "name": "wavlm_attention_fwd_general", **common,
@@ -983,8 +1009,7 @@ def phase_wavlm_kernels(spec) -> dict:
                        "body": wavlm_kernel_body("wavlm_attention_fwd_general", dtype, D),
                        **rel_error(out_g, want, f"wavlm fwd general {label} {dtype}", dtype),
                        "rel_err_vs_single": vs_single,
-                       "fwd_bit_identical_to_single": all(
-                           torch.equal(*general[n]) for n in ("out", "m", "l")),
+                       "fwd_bit_identical_to_single": all(bits[n] for n in ("out", "m", "l")),
                        "ms": ms,
                        "ms_no_dropout": time_ms(lambda: wavlm_attention_fwd_general(
                            *args, lengths, **{**kw, "dropout_rate": 0.0})),
@@ -998,7 +1023,7 @@ def phase_wavlm_kernels(spec) -> dict:
                     ("wavlm_attention_bwd_dq", "dq", (("dq", dq_g, wq), ("dgate", dgate_g, wgate)),
                      (dq_g, dgate_g, di_g), call(wavlm_attention_bwd_dq)),
                     ("wavlm_attention_bwd_dbias", "dbias", (("dbias", dbias_g, wbias),),
-                     (dbias_g,), call(wavlm_attention_bwd_dbias)),
+                     (dbias_g,), call(wavlm_attention_bwd_dbias, di_g)),
                     ("wavlm_attention_bwd_dkv_general", "dkv", (("dk", dk_g, wk), ("dv", dv_g, wv)),
                      (dk_g, dv_g), call(wavlm_attention_bwd_dkv_general, di_g)),
                 )
@@ -1011,10 +1036,14 @@ def phase_wavlm_kernels(spec) -> dict:
                 again = again if isinstance(again, tuple) else (again,)
                 check(all(torch.equal(a, b) for a, b in zip(again, first)),
                       f"{name} {label} {dtype}: a rerun gave other bits")
+                same = {"wavlm_attention_bwd_dq": ("dq", "dgate", "di"),
+                        "wavlm_attention_bwd_dbias": ("dbias",),
+                        "wavlm_attention_bwd_dkv_general": ("dk", "dv")}.get(name, ())
                 row = {"phase": "kernel", "name": name, **common,
                        "body": wavlm_kernel_body(name, dtype, D),
                        **_rel_row(pairs, dtype, f"{name} {label} {dtype}"),
                        "rerun_bit_identical": True,
+                       **({"bit_identical_to_single": {n: bits[n] for n in same}} if same else {}),
                        "ms": ms, "ms_no_dropout": ms_no_dropout, "plain_ms": plain_ms,
                        "achieved_tflops": wavlm_flops(kind, B, L, H, D, lengths) / ms / 1e9,
                        "plain": "wavlm_attention_bwd_reference (dq, dk, dv, dbias, dgate together)",
@@ -1026,6 +1055,7 @@ def phase_wavlm_kernels(spec) -> dict:
             del wq, wk, wv, wbias, wgate, general, entries
             torch.cuda.empty_cache()
     phase_mask_readout("wavlm", "wavlm_train")
+    phase_mask_readout("wavlm", "wavlm_general_train", route="general")
     phase_forward_mask_readout("wavlm", "wavlm_train")
     return results
 
@@ -1358,13 +1388,15 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
     return state, fields, hist
 
 
-def phase_train(family: str = "hubert") -> dict:
+def phase_train(family: str = "hubert", label: str = "") -> dict:
     """The training path: bf16 distill steps at B = 16 x 15 s with dropout
     on (the teacher preset's rates), DistillConfig defaults, a batch that
     stays on the card (as bench.py); ``family`` "wavlm" is the DPWavLM step
-    (bench.py's DPWavLM mode): exactly 24 WavLM forwards (12 teacher, 12
-    student), 12 fused backwards and 12 dkv a step, no packed or flash
-    kernel."""
+    (bench.py's DPWavLM mode): on the single route (``wavlm_route`` at L =
+    749, read now) exactly 24 WavLM forwards (12 teacher, 12 student), 12
+    fused backwards and 12 dkv a step; on the general one 24 general
+    forwards and 12 each of the general dq, dbias and dkv; no packed or
+    flash kernel."""
     teacher, student = distill_models("cuda", family)
     cfg = DistillConfig(compute_dtype="bfloat16")
     state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5,
@@ -1381,10 +1413,14 @@ def phase_train(family: str = "hubert") -> dict:
               and per_step["flash_attention_fwd"] == 0, f"stage-1 launches per step {per_step}")
     else:
         want = dict.fromkeys(WRAPPERS, 0)
-        want.update(wavlm_attention_fwd=24, wavlm_attention_bwd_fused=12,
-                    wavlm_attention_bwd_dkv=12)
+        if wavlm_route(L) == "single":
+            want.update(wavlm_attention_fwd=24, wavlm_attention_bwd_fused=12,
+                        wavlm_attention_bwd_dkv=12)
+        else:
+            want.update(wavlm_attention_fwd_general=24, wavlm_attention_bwd_dq=12,
+                        wavlm_attention_bwd_dbias=12, wavlm_attention_bwd_dkv_general=12)
         check(per_step == want, f"DPWavLM launches per step {per_step}, expected {want}")
-    label = "train" if family == "hubert" else "wavlm_train"
+    label = label or ("train" if family == "hubert" else "wavlm_train")
     state, fields, hist = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
                                       per_step, TRAIN_B * TRAIN_SECONDS)
     gap = [m["sparsity_expected"] - m["sparsity_target"] for m in hist]
@@ -1393,9 +1429,37 @@ def phase_train(family: str = "hubert") -> dict:
     check(lam1 != 0.0 and np.sign(lam1) == np.sign(np.mean(gap)),
           f"λ1 = {lam1} after steps with mean s - t = {np.mean(gap)}")
     row = {"phase": label, "model": f"{family}_base teacher, gated {family}_base student",
-           "batch": [TRAIN_B, T], "L": L, **fields, "lambda1_final": lam1,
-           "s_minus_t": [gap[0], gap[-1]]}
+           "batch": [TRAIN_B, T], "L": L, "route": wavlm_route(L) if family == "wavlm" else None,
+           **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
+    return row
+
+
+def phase_wavlm_general_train(single: dict) -> dict:
+    """The DPWavLM step of ``phase_train("wavlm")`` on the general route
+    (``DPHUBERT_WAVLM_SINGLE_BLOCK=0``): the same models, batch and seeds at
+    full width, right after the single route's run ``single`` in the same
+    process: exactly 24 / 12 / 12 / 12 launches a step of the general
+    forward, dq, dbias and dkv entries and none elsewhere, and a peak memory
+    within 1% of the single route's; its step time beside the single
+    route's."""
+    gc.collect()  # the single route's models and state, if a cycle holds them
+    os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"] = "0"
+    try:
+        row = phase_train("wavlm", "wavlm_general_train")
+    finally:
+        del os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"]
+    check(row["route"] == "general" and single["route"] == "single",
+          f"routes {single['route']}, {row['route']}")
+    check(row["peak_memory_bytes"] <= 1.01 * single["peak_memory_bytes"],
+          f"general-route step peak {row['peak_memory_bytes']} > 1.01 x the single route's "
+          f"{single['peak_memory_bytes']}")
+    keys = ("step_s", "audio_sec_per_s", "segments", "peak_memory_bytes")
+    emit({"phase": "wavlm_routes", "single": {k: single[k] for k in keys},
+          "general": {k: row[k] for k in keys},
+          "step_ratio_general_over_single": row["step_s"] / single["step_s"],
+          "peak_ratio_general_over_single": row["peak_memory_bytes"]
+          / single["peak_memory_bytes"]})
     return row
 
 
@@ -1980,7 +2044,8 @@ def main() -> int:
     path_launches["pipeline"] = phase_pipeline()["launches"]
 
     # path 4: DPWavLM: WavLM Base and the pruned WavLM student served, the
-    # step checked on both routes, the timed bf16 step, the WavLM recipe
+    # step checked on both routes, the timed bf16 step on the single route
+    # and then on the general one, the WavLM recipe
     reset_launch_counts()
     wavlm = pt.wavlm_base(device="cuda", generator=torch.Generator().manual_seed(0))
     phase_slice("wavlm_base", wavlm)
@@ -1992,7 +2057,9 @@ def main() -> int:
     del wavlm_student
     phase_train_check("wavlm", "wavlm_train_check")
     path_launches["wavlm_general"] = phase_wavlm_general_check()["launches"]
-    path_launches["wavlm_train"] = phase_train("wavlm")["launches"]
+    wavlm_step = phase_train("wavlm")
+    path_launches["wavlm_train"] = wavlm_step["launches"]
+    path_launches["wavlm_general_train"] = phase_wavlm_general_train(wavlm_step)["launches"]
     path_launches["wavlm_pipeline"] = phase_wavlm_pipeline()["launches"]
 
     # path 5: wav2vec 2.0 Large (run_large.sh): the packed kernels at its
@@ -2059,13 +2126,9 @@ def main() -> int:
             entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
     check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
-    # bf16 on the tensor cores: every packed and flash entry, both WavLM
-    # forwards and the WavLM single route's backward pair
-    bodies = {e["name"]: e["body"] for e in line if not e["name"].startswith("wavlm_")
-              or e["name"] in ("wavlm_attention_fwd", "wavlm_attention_fwd_general",
-                               "wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")}
-    check(len(bodies) == 10 and set(bodies.values()) == {"wgmma"},
-          f"bf16 bodies of the packed, flash, WavLM forward and single backward entries: {bodies}")
+    # bf16 on the tensor cores: every entry
+    bodies = {e["name"]: e["body"] for e in line}
+    check(set(bodies.values()) == {"wgmma"}, f"bf16 bodies of the entries: {bodies}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": line})

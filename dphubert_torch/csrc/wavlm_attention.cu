@@ -7,9 +7,9 @@
 // B*H*L*L is ever in memory.
 //
 // Replaces the seven Pallas kernels of the TPU package's
-// ops/wavlm_attention.py with three CUDA-core kernel bodies (and, in bf16
-// at D = 64, for both forward entries and the single route's backward pair,
-// the four tensor-core bodies of wavlm_attention_wgmma.cuh: below):
+// ops/wavlm_attention.py with three CUDA-core kernel bodies for fp32 and
+// D = 80 (and, in bf16 at D = 64, for all seven entries, the four
+// tensor-core bodies of wavlm_attention_wgmma.cuh: below):
 //   * wavlm_fwd_kernel: _fwd_single_kernel (pallas_call at :216), entry
 //     wavlm_attention_fwd, and _fwd_kernel (:268), entry
 //     wavlm_attention_fwd_general.  out, and the row max m and undropped
@@ -27,11 +27,13 @@
 // with another grid order (one KV block holds the whole row there, so the
 // single forward needs no online softmax and the single backward fuses
 // dbias into the dq pass).  Here every body walks the keys in 64-wide
-// tiles with an online softmax either way; the two entries of a pair differ
-// in the order of their blocks (the single entries put the batch index
-// innermost, so the B blocks that read one bias tile run together and share
-// it in L2, as the TPU kernels kept it in VMEM across an inner batch axis)
-// and, for the backward, in where dbias is summed.
+// tiles with an online softmax either way; on the CUDA cores the two
+// entries of a pair differ in the order of their blocks (the single entries
+// put the batch index innermost, so the B blocks that read one bias tile
+// run together and share it in L2, as the TPU kernels kept it in VMEM
+// across an inner batch axis) and, for the backward, in where dbias is
+// summed.  On the tensor cores the general backward entries are the single
+// route's launches, taken apart: the same bits.
 //
 // Semantics (as the Pallas kernels, in fp32 whatever the input type):
 //   s = (q . k) * scale + gate * bias; key column c of batch b is masked
@@ -56,18 +58,18 @@
 // reads of q, k, v, dout of the same order as HuBERT's and of the (H, L, L)
 // bias table: at the stage-1 shape (B = 16, L = 749, 12 heads of 64) the
 // operations outweigh the bytes, so the kernels are bound by operations.
-// For bf16 at D = 64 (every DPWavLM training step and bf16 WavLM serving on
-// the card) both forward entries and the single route's backward pair run
-// on the tensor cores (wavlm_attention_wgmma.cuh): the forward is
-// attention_fwd.cu's tensor-core body with the gate * bias term added to
-// S's fragment (one body, blocks in each entry's order), the fused entry a
-// dq body (dq, dgate, di) and a dbias body that sums the batch per 64 x 64
-// tile, dkv its own body; such calls run there or are refused
+// For bf16 at D = 64 (every DPWavLM training step on either route and bf16
+// WavLM serving on the card) all seven entries run on the tensor cores
+// (wavlm_attention_wgmma.cuh): the forward is attention_fwd.cu's
+// tensor-core body with the gate * bias term added to S's fragment (one
+// body, blocks in each entry's order), the fused entry a dq body (dq,
+// dgate, di) and then a dbias body that sums the batch per 64 x 64 tile,
+// the general dq and dbias entries one of those two each, both dkv
+// entries the dkv body; such calls run there or are refused
 // (cudaErrorMisalignedAddress for views the 16-byte copies cannot read).
-// The general route's three backward entries, fp32 (the card-vs-CPU check
-// path, which TF32 products would break) and D = 80 (XLarge) run fp32 FMA
-// on the CUDA cores (67 TFLOP/s, not the tensor cores' 989 TFLOP/s in
-// bf16).  What the CUDA-core design does:
+// fp32 (the card-vs-CPU check path, which TF32 products would break) and
+// D = 80 (XLarge) run fp32 FMA on the CUDA cores (67 TFLOP/s, not the
+// tensor cores' 989 TFLOP/s in bf16).  What the CUDA-core design does:
 //   * the forward and dkv bodies are the flash bodies of attention_fwd.cu /
 //     attention_bwd.cu (64x64 score tiles, a 4x4 register tile a thread)
 //     with the bias term added where the scores are formed; the forward
@@ -83,15 +85,14 @@
 //     has one owner and a fixed order, so two runs give the same bits;
 //   * the general dq entry is the same body with the strip off and one
 //     block per (q tile, head, batch row); the general dbias entry one
-//     block per (q tile, head, KV tile) looping over the batch;
+//     block per (q tile, head, KV tile) looping over the batch, reading
+//     the di the dq entry wrote (as the tensor-core dbias body does);
 //   * KV tiles wholly past lengths[b] are skipped (p = 0 there).
 // Limit: the CUDA-core fused body's strip needs 128 * ceil64(L) bytes of
 // shared memory beside its tiles; past L = 1344 frames (D = 64; 1216 for
 // D = 80) it does not fit, the entry returns cudaErrorInvalidValue, and the
 // wrapper refuses such a call before it launches (the stage-1 step runs at
 // L <= 780).  The tensor-core bodies have no such limit.
-#include <type_traits>
-
 #include "wavlm_attention_wgmma.cuh"
 
 namespace {
@@ -467,7 +468,7 @@ __global__ void __launch_bounds__(kThreads)
                        const T* __restrict__ dout,
                        const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
-                       float* __restrict__ di_out, T* __restrict__ dq,
+                       float* __restrict__ di, T* __restrict__ dq,
                        float* __restrict__ dgate, float* __restrict__ dbias,
                        const int* __restrict__ lengths, int B, int H, int L,
                        Strides in, float scale, Dropout drop,
@@ -521,21 +522,25 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T, D>(sdO, dout + srow * D, D, q0, kRowsQ, L);
     __syncthreads();
 
-    // di = rowsum(out * dout), m, 1/l and the gate of the tile's rows, 8
-    // threads a row; rows past L get p = 0 through 1/l = 0
+    // di (kDq: rowsum(out * dout), written; else the dq entry's, read), m,
+    // 1/l and the gate of the tile's rows, 8 threads a row; rows past L get
+    // p = 0 through 1/l = 0
     {
       const int r = tid >> 3, part = tid & 7, row = q0 + r;
       float acc = 0.f;
-      if (row < L)
-        for (int c = part; c < D; c += 8)
-          acc = fmaf(to_float(out[(srow + row) * D + c]), sdO[r * KP + c], acc);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      if (kDq) {
+        if (row < L)
+          for (int c = part; c < D; c += 8)
+            acc = fmaf(to_float(out[(srow + row) * D + c]), sdO[r * KP + c], acc);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      }
       if (part == 0) {
         float m = 0.f, l_inv = 0.f, g = 0.f;
         if (row < L) {
-          if (di_out != nullptr) di_out[srow + row] = acc;
+          if (kDq) di[srow + row] = acc;
+          else acc = di[srow + row];
           m = m_in[srow + row];
           const float l = l_in[srow + row];
           l_inv = l == 0.f ? 1.f : 1.f / l;
@@ -725,18 +730,21 @@ cudaError_t launch_q(const WArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bias, a.gate,
       static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.m, a.l,
-      a.di, static_cast<T*>(a.dq), a.dgate, a.dbias, a.lengths, a.B, a.H, a.L,
-      a.in, a.scale, a.drop, strip_width);
+      a.di, static_cast<T*>(a.dq), a.dgate, a.dbias, a.lengths, a.B, a.H,
+      a.L, a.in, a.scale, a.drop, strip_width);
   return cudaGetLastError();
 }
 
 enum class Kind { kFwd, kDkv, kFused, kDq, kDbias };
 
-// bf16 at D = 64 (the tensor-core bodies): both forward entries launch the
-// forward body (blocks in their entry's order); the fused entry launches
-// the dq body, then the dbias body that reads its di, on one stream; the
-// single dkv entry the dkv body.  The backward's blocks are ordered
-// batch-innermost where a block owns one batch row.
+// bf16 at D = 64 (the tensor-core bodies), every entry: both forward
+// entries launch the forward body (blocks in their entry's order); the dq
+// entry the dq body (dq, dgate and di), the dbias entry the dbias body
+// (reading the di the dq entry wrote), the fused entry both of them in
+// that order on one stream; both dkv entries the dkv body.  The backward's
+// blocks are ordered batch-innermost in every entry, so that the B blocks
+// that read one bias tile meet in L2: the single and general entries give
+// the same bits.
 cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int tiles = (a.L + kWgRows - 1) / kWgRows;
@@ -761,14 +769,16 @@ cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
         static_cast<bf16*>(a.dv), a.lengths, a.H, a.L, a.in, a.scale, a.drop);
     return cudaGetLastError();
   }
-  auto dq_kernel = wavlm_bwd_dq_wgmma_kernel;
-  static bool dq_configured = false;
-  if ((err = allow_smem(dq_kernel, kWlDqSmem, &dq_configured)) != cudaSuccess) return err;
-  dq_kernel<<<dim3(a.B, tiles, a.H), kWgThreads, kWlDqSmem, stream>>>(
-      q, k, v, a.bias, a.gate, static_cast<const bf16*>(a.out), dout, a.m, a.l, a.di,
-      static_cast<bf16*>(a.dq), a.dgate, a.lengths, a.H, a.L, a.in, a.scale, a.drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto dbias_kernel = wavlm_bwd_dbias_wgmma_kernel;
+  if (kind != Kind::kDbias) {  // kDq, kFused
+    auto dq_kernel = wavlm_bwd_dq_wgmma_kernel;
+    static bool dq_configured = false;
+    if ((err = allow_smem(dq_kernel, kWlDqSmem, &dq_configured)) != cudaSuccess) return err;
+    dq_kernel<<<dim3(a.B, tiles, a.H), kWgThreads, kWlDqSmem, stream>>>(
+        q, k, v, a.bias, a.gate, static_cast<const bf16*>(a.out), dout, a.m, a.l, a.di,
+        static_cast<bf16*>(a.dq), a.dgate, a.lengths, a.H, a.L, a.in, a.scale, a.drop);
+    if ((err = cudaGetLastError()) != cudaSuccess || kind == Kind::kDq) return err;
+  }
+  auto dbias_kernel = wavlm_bwd_dbias_wgmma_kernel;  // kDbias, kFused
   static bool dbias_configured = false;
   if ((err = allow_smem(dbias_kernel, kWlDbiasSmem, &dbias_configured)) != cudaSuccess)
     return err;
@@ -778,21 +788,13 @@ cudaError_t launch_wgmma(Kind kind, const WArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 at D = 64 takes the forward and fused entries to launch_wgmma
-// (dispatch), so their CUDA-core bodies are not instantiated for it
-template <typename T, int D>
-constexpr bool kWgmma = std::is_same<T, __nv_bfloat16>::value && D == 64;
-
+// fp32 and D = 80: the CUDA-core bodies (bf16 at D = 64 never reaches them)
 template <typename T, int D>
 cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
   switch (kind) {
-    case Kind::kFwd:
-      if constexpr (!kWgmma<T, D>) return launch_fwd<T, D>(a, stream);
-      break;
+    case Kind::kFwd: return launch_fwd<T, D>(a, stream);
     case Kind::kDkv: return launch_dkv<T, D>(a, stream);
-    case Kind::kFused:
-      if constexpr (!kWgmma<T, D>) return launch_q<T, D, true, true>(a, stream);
-      break;
+    case Kind::kFused: return launch_q<T, D, true, true>(a, stream);
     case Kind::kDq: return launch_q<T, D, true, false>(a, stream);
     case Kind::kDbias: return launch_q<T, D, false, true>(a, stream);
   }
@@ -802,9 +804,10 @@ cudaError_t launch(Kind kind, const WArgs& a, cudaStream_t stream) {
 cudaError_t dispatch(Kind kind, int dtype, int D, const WArgs& a,
                      cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.L <= 0) return cudaErrorInvalidValue;
-  const bool wgmma_entry = kind == Kind::kFwd || kind == Kind::kFused ||
-                           (kind == Kind::kDkv && a.batch_inner);
-  if (dtype == 1 && D == 64 && wgmma_entry) {
+  // every backward body reads or writes di: the dq side writes it, the
+  // dbias and dkv entries read the one it wrote
+  if (kind != Kind::kFwd && a.di == nullptr) return cudaErrorInvalidValue;
+  if (dtype == 1 && D == 64) {
     // the tensor-core bodies copy q, k, v and dout rows (and read out) 16
     // bytes at a time and write bf16 pairs: other pointers and strides are
     // refused, never run on the CUDA-core body (an entry's unused pointers
@@ -819,9 +822,8 @@ cudaError_t dispatch(Kind kind, int dtype, int D, const WArgs& a,
   if (dtype == 0) {
     if (D == 64) return launch<float, 64>(kind, a, stream);
     if (D == 80) return launch<float, 80>(kind, a, stream);
-  } else if (dtype == 1) {
-    if (D == 64) return launch<__nv_bfloat16, 64>(kind, a, stream);
-    if (D == 80) return launch<__nv_bfloat16, 80>(kind, a, stream);
+  } else if (dtype == 1 && D == 80) {
+    return launch<__nv_bfloat16, 80>(kind, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -946,7 +948,9 @@ int wavlm_attention_bwd_dkv(const void* q, const void* k, const void* v,
              threshold, inv_keep, B, H, L, D, sb, sh, sr, scale, dtype, stream);
 }
 
-// As wavlm_attention_bwd_dkv, blocks ordered batch-outermost.
+// As wavlm_attention_bwd_dkv; the CUDA-core body (fp32, D = 80) orders its
+// blocks batch-outermost, the tensor-core body (bf16, D = 64) as the single
+// entry (the same launch, the same bits).
 int wavlm_attention_bwd_dkv_general(
     const void* q, const void* k, const void* v, const void* bias,
     const void* gate, const void* dout, const void* m, const void* l,
@@ -980,7 +984,9 @@ int wavlm_attention_bwd_fused(const void* q, const void* k, const void* v,
                 sb, sh, sr, scale, dtype, stream);
 }
 
-// As wavlm_attention_bwd_fused without dbias (pass null).
+// As wavlm_attention_bwd_fused without dbias (pass null): in bf16 at D = 64
+// the fused entry's first launch alone (the dq body: dq, dgate and di, the
+// same bits); otherwise one block per (q tile, head, batch row).
 int wavlm_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* bias, const void* gate, const void* out,
                            const void* dout, const void* m, const void* l,
@@ -994,8 +1000,13 @@ int wavlm_attention_bwd_dq(const void* q, const void* k, const void* v,
                 sh, sr, scale, dtype, stream);
 }
 
-// As wavlm_attention_bwd_fused with dbias only (di, dq and dgate: pass
-// null): one block per (q tile, head, KV tile), the batch summed inside.
+// As wavlm_attention_bwd_fused with dbias only (dq and dgate: pass null; out
+// is not read), reading di, the (B, H, L) float32 that wavlm_attention_bwd_dq
+// wrote (cudaErrorInvalidValue without it), in every body: in bf16 at D = 64
+// the fused entry's second launch alone (the dbias body, one block per 64 x
+// 64 tile and head, the batch summed inside; the same bits); in fp32 and at
+// D = 80 the CUDA-core body with one block per (32-row q tile, head, KV
+// tile), the batch summed inside.
 int wavlm_attention_bwd_dbias(const void* q, const void* k, const void* v,
                               const void* bias, const void* gate,
                               const void* out, const void* dout,
@@ -1005,7 +1016,7 @@ int wavlm_attention_bwd_dbias(const void* q, const void* k, const void* v,
                               float inv_keep, int B, int H, int L, int D,
                               long long sb, long long sh, long long sr,
                               float scale, int dtype, void* stream) {
-  return q_side(Kind::kDbias, q, k, v, bias, gate, out, dout, m, l, nullptr,
+  return q_side(Kind::kDbias, q, k, v, bias, gate, out, dout, m, l, di,
                 nullptr, nullptr, dbias, lengths, seed, threshold, inv_keep, B,
                 H, L, D, sb, sh, sr, scale, dtype, stream);
 }

@@ -1,9 +1,10 @@
 // Tensor-core bodies of WavLM's gated-bias attention: bf16 inputs at
 // head_dim 64, the dtype and width of every DPWavLM training step and of
 // bf16 WavLM serving on the card.  wavlm_attention.cu's dispatch picks them
-// for (bf16, 64) in both forward entries, wavlm_attention_bwd_fused and
-// wavlm_attention_bwd_dkv; fp32, D = 80 and the general route's three
-// backward entries keep the CUDA-core bodies there.
+// for (bf16, 64) in all seven entries: the forward body for both forward
+// entries, the dq and dbias bodies for the fused entry (both, in that
+// order) and for the general dq and dbias entries (one each), the dkv body
+// for both dkv entries; fp32 and D = 80 keep the CUDA-core bodies there.
 //
 // The forward (wavlm_fwd_wgmma_kernel) is attention_fwd_wgmma.cuh's body
 // with the gated bias: the bias fragment loaded one KV tile ahead, while
@@ -41,7 +42,8 @@
 //     over the batch rows in order, recomputing S and dP (two products) for
 //     each and adding gate * ds into one fp32 accumulator, written once.
 // So the fused entry is two launches on one stream: the dq body (dq, dgate
-// and di) and then the dbias body, which reads that di.  No float atomics:
+// and di) and then the dbias body, which reads that di; the general route's
+// dq and dbias entries are those two launches apart, called in that order.  No float atomics:
 // every sum has one owner and a fixed order, so reruns give the same bits.
 // dgate and dbias are summed from the unrounded fp32 ds; only the A
 // operands (P~ and scale * ds) are rounded to bf16, as the plain version

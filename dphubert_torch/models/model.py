@@ -105,7 +105,8 @@ class Wav2Vec2Model(nn.Module):
             raise NotImplementedError(
                 "forward(training=True) needs LayerDrop (the TPU package's "
                 "components.py:642-652), which is not ported: the distill step "
-                "runs extract_features (ROADMAP queue 1, item 7)"
+                "runs extract_features (ROADMAP.md, queue 1: \"LayerDrop in "
+                "Wav2Vec2Model.forward(training=True)\")"
             )
         if self.spec.normalize_waveform:
             waveforms = components.normalize_waveform(waveforms, lengths)

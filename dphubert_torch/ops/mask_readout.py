@@ -4,8 +4,9 @@ entries.
 With chosen inputs the output of ``packed_attention`` / ``flash_attention``
 / ``wavlm_attention`` (both WavLM forward entries) and the gradients that
 ``packed_attention_bwd_dq`` / ``_dkv``, ``flash_attention_bwd_dq`` /
-``_dkv`` and ``wavlm_attention_bwd_fused`` /
-``wavlm_attention_bwd_dkv`` return are integers whose bits are the keep mask
+``_dkv``, ``wavlm_attention_bwd_fused`` / ``wavlm_attention_bwd_dkv`` (the
+single route) and ``wavlm_attention_bwd_dq`` / ``_dbias`` / ``_dkv_general``
+(the general route) return are integers whose bits are the keep mask
 the kernel drew at each (batch, head, row, column), so a test can hold the
 kernels' device hash, at every accumulator element's (row, column), bit for
 bit against the plain mask (``dropout_keep_mask``).  The tests run it on the
@@ -26,7 +27,14 @@ from .packed_attention import (
     packed_attention_bwd_dkv,
     packed_attention_bwd_dq,
 )
-from .wavlm_attention import wavlm_attention, wavlm_attention_bwd_dkv, wavlm_attention_bwd_fused
+from .wavlm_attention import (
+    wavlm_attention,
+    wavlm_attention_bwd_dbias,
+    wavlm_attention_bwd_dkv,
+    wavlm_attention_bwd_dkv_general,
+    wavlm_attention_bwd_dq,
+    wavlm_attention_bwd_fused,
+)
 
 
 def _coded(L, D, device):
@@ -88,10 +96,12 @@ def forward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterabl
 
 def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterable[int],
                           B: int = 2, H: int = 12, L: int = 200, D: int = 64,
-                          rate: float = 0.1) -> List[Tuple[int, str, torch.Tensor, torch.Tensor]]:
+                          rate: float = 0.1, route: str = "single",
+                          ) -> List[Tuple[int, str, torch.Tensor, torch.Tensor]]:
     """The dropout mask read out of the dq and dkv entries of ``layout``
-    ("packed", "flash", or "wavlm": the single route's
-    ``wavlm_attention_bwd_fused`` and ``_dkv`` with a zero bias) in three
+    ("packed", "flash", or "wavlm" with a zero bias: for ``route`` "single"
+    ``wavlm_attention_bwd_fused`` and ``_dkv``, for "general"
+    ``wavlm_attention_bwd_dq``, ``_dbias`` and ``_dkv_general``) in three
     runs per seed, with out = 0 (so di = 0), no lengths and m = 0, l = L
     (the statistics of q k^T = 0):
       dq: q = 0 (p = 1/L), k coded, v and dout one-hot in column 0 (dp = 1):
@@ -104,6 +114,8 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
     round(dbias L keep) holds the masks of every batch row (b < 24) at every
     (h, i, j): the fp32 ds that dbias sums, at each accumulator element.
     Returns [(seed, what, got, want)] with (B, H, L, L) boolean masks."""
+    if route not in ("single", "general"):
+        raise ValueError(f"route must be 'single' or 'general', got {route!r}")
     keep = 1.0 - rate
     scale = D ** -0.5
     zero, coded = torch.zeros(L, D, device=device), _coded(L, D, device)
@@ -144,8 +156,13 @@ def backward_mask_readout(layout: str, device, dtype: torch.dtype, seeds: Iterab
 
             def backward(q, k, v, dout, **kw):
                 args = (q, k, v, bias, gate, torch.zeros_like(q), dout, m, l)
-                dq, _, dbias, di = wavlm_attention_bwd_fused(*args, None, **kw)
-                dk, dv = wavlm_attention_bwd_dkv(*args, di, None, **kw)
+                if route == "single":
+                    dq, _, dbias, di = wavlm_attention_bwd_fused(*args, None, **kw)
+                    dk, dv = wavlm_attention_bwd_dkv(*args, di, None, **kw)
+                else:
+                    dq, _, di = wavlm_attention_bwd_dq(*args, None, **kw)
+                    dbias = wavlm_attention_bwd_dbias(*args, di, None, **kw)
+                    dk, dv = wavlm_attention_bwd_dkv_general(*args, di, None, **kw)
                 return {"dq": dq, "dk": dk, "dv": dv, "dbias": dbias}
     b = torch.arange(B, device=device).view(B, 1, 1, 1)
     h = torch.arange(H, device=device).view(1, H, 1, 1)

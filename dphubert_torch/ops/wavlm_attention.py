@@ -20,12 +20,12 @@ Seven kernel wrappers, each beside its plain version, launch the entries of
   and dgate), ``wavlm_attention_bwd_dbias`` and
   ``wavlm_attention_bwd_dkv_general``.
 
-For bf16 at head_dim 64 both forward entries (one body, blocks in another
-order) and the single route's backward pair run on the tensor cores
+For bf16 at head_dim 64 all seven entries run on the tensor cores
 (``csrc/wavlm_attention_wgmma.cuh``), or raise on views their 16-byte
-copies cannot read; the general route's backward entries, fp32 and head_dim
-80 run on the CUDA cores (``wavlm_kernel_body`` names the body an entry
-runs).
+copies cannot read: both forward entries one body (blocks in another
+order), the general route's dq, dbias and dkv entries the single route's
+backward launches taken apart (the same bits).  fp32 and head_dim 80 run
+on the CUDA cores (``wavlm_kernel_body`` names the body an entry runs).
 
 The plain versions are ``wavlm_attention_reference`` and
 ``wavlm_attention_bwd_reference``.  Each wrapper runs the plain version on
@@ -71,18 +71,16 @@ LANES = 128
 # dbias in shared memory beside its tiles (csrc/wavlm_attention.cu:
 # q_smem_floats); the H100's 227 KB per block hold it up to these lengths
 _SMEM_FLOATS = 232448 // 4
-# the entries whose bf16, head_dim 64 calls run the tensor-core bodies
-_WGMMA_ENTRIES = ("wavlm_attention_fwd", "wavlm_attention_fwd_general",
-                  "wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv")
 
 
 def wavlm_kernel_body(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """Which body the WavLM entry ``name`` of ``csrc/wavlm_attention.cu``
-    runs: "wgmma" (tensor cores, ``wavlm_attention_wgmma.cuh``) for both
-    forward entries and the single route's backward pair in bf16 at
-    head_dim 64, "fma" (fp32 on the CUDA cores) for the general route's
-    backward entries and for every entry in fp32 or at head_dim 80."""
-    return kernel_body(dtype, head_dim) if name in _WGMMA_ENTRIES else "fma"
+    runs: "wgmma" (tensor cores, ``wavlm_attention_wgmma.cuh``) for every
+    entry in bf16 at head_dim 64, "fma" (fp32 on the CUDA cores) in fp32
+    or at head_dim 80."""
+    if name not in _POINTERS:
+        raise ValueError(f"no WavLM entry named {name!r}")
+    return kernel_body(dtype, head_dim)
 
 
 def fused_max_len(head_dim: int) -> int:
@@ -314,9 +312,10 @@ def wavlm_attention_bwd_dkv_general(q, k, v, bias, gate, out, dout, m, l, di, le
 wavlm_attention_bwd_dkv_general.launches = 0
 
 
-def _q_side(name, q, k, v, bias, gate, out, dout, m, l, lengths, scale, dropout_rate, seed,
-            want_dq: bool, want_dbias: bool):
-    """(dq, dgate, dbias, di), None where the entry does not compute it."""
+def _q_side(name, q, k, v, bias, gate, out, dout, m, l, di, lengths, scale, dropout_rate,
+            seed, want_dq: bool, want_dbias: bool):
+    """(dq, dgate, dbias, di), None where the entry does not compute it;
+    ``di`` is the dbias entry's input (None for the entries that write it)."""
     if q.device.type == "cpu":
         dq, _, _, dbias, dgate = wavlm_attention_bwd_reference(
             q, k, v, bias, gate, out, dout, lengths, scale=scale, dropout_rate=dropout_rate,
@@ -325,19 +324,23 @@ def _q_side(name, q, k, v, bias, gate, out, dout, m, l, lengths, scale, dropout_
             return (None, None, dbias, None), False
         return (dq, dgate, dbias if want_dbias else None, _di(out, dout)), False
     _check(q, k, v, bias, gate, lengths, seed, dropout_rate)
-    _check_stats(q, out, dout, (("m", m), ("l", l)))
+    if not want_dq and di is None:
+        raise ValueError(f"{name} reads the di that wavlm_attention_bwd_dq wrote: pass it")
+    _check_stats(q, out, dout, (("m", m), ("l", l)) + (() if want_dq else (("di", di),)))
     B, H, L, D = q.shape
     if (want_dq and want_dbias and L > fused_max_len(D)
             and wavlm_kernel_body(name, q.dtype, D) == "fma"):
         raise ValueError(
-            f"the fused WavLM backward holds a 32 x {_ceil_to(L, 64)} dbias strip in shared "
-            f"memory; L = {L} exceeds its {fused_max_len(D)} frames (pass block_kv to take "
-            "the general route)"
+            f"the fused WavLM backward's CUDA-core body ({q.dtype}, head_dim {D}) holds a "
+            f"32 x {_ceil_to(L, 64)} dbias strip in shared memory; L = {L} exceeds its "
+            f"{fused_max_len(D)} frames (pass block_kv to take the general route, whose "
+            "CUDA-core entries hold no such strip)"
         )
     empty = lambda shape: torch.empty(shape, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) if want_dq else None
     dgate = empty((B, H, L)) if want_dq else None
-    di = empty((B, H, L)) if want_dq else None
+    if want_dq:
+        di = empty((B, H, L))
     dbias = empty((H, L, L)) if want_dbias else None
     ptr = lambda t: None if t is None else t.data_ptr()
     _run(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), gate.data_ptr(),
@@ -354,7 +357,7 @@ def wavlm_attention_bwd_fused(q, k, v, bias, gate, out, dout, m, l, lengths=None
     * dout) (B, H, L) in fp32.  Arguments as for ``wavlm_attention_bwd_dkv``
     (without di); CPU tensors take the plain version."""
     result, launched = _q_side("wavlm_attention_bwd_fused", q, k, v, bias, gate, out, dout, m,
-                               l, lengths, scale, dropout_rate, seed, True, True)
+                               l, None, lengths, scale, dropout_rate, seed, True, True)
     wavlm_attention_bwd_fused.launches += int(launched)
     return result
 
@@ -368,7 +371,7 @@ def wavlm_attention_bwd_dq(q, k, v, bias, gate, out, dout, m, l, lengths=None, *
     """The general route's dq and dgate -> (dq, dgate, di), as
     ``wavlm_attention_bwd_fused`` without dbias."""
     (dq, dgate, _, di), launched = _q_side(
-        "wavlm_attention_bwd_dq", q, k, v, bias, gate, out, dout, m, l, lengths, scale,
+        "wavlm_attention_bwd_dq", q, k, v, bias, gate, out, dout, m, l, None, lengths, scale,
         dropout_rate, seed, True, False)
     wavlm_attention_bwd_dq.launches += int(launched)
     return dq, dgate, di
@@ -377,13 +380,16 @@ def wavlm_attention_bwd_dq(q, k, v, bias, gate, out, dout, m, l, lengths=None, *
 wavlm_attention_bwd_dq.launches = 0
 
 
-def wavlm_attention_bwd_dbias(q, k, v, bias, gate, out, dout, m, l, lengths=None, *,
+def wavlm_attention_bwd_dbias(q, k, v, bias, gate, out, dout, m, l, di, lengths=None, *,
                               scale: float, dropout_rate: float = 0.0,
                               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The general route's dbias (H, L, L) fp32: sum over the batch of
-    gate * ds."""
+    gate * ds, reading the di (B, H, L) fp32 that ``wavlm_attention_bwd_dq``
+    wrote (call it first), as the TPU package's ``_bwd_dbias_kernel`` reads
+    ``di_ref``; every body reads it and none reads out.  CPU tensors take
+    the plain version (out feeds its di there; m, l and di are unused)."""
     (_, _, dbias, _), launched = _q_side(
-        "wavlm_attention_bwd_dbias", q, k, v, bias, gate, out, dout, m, l, lengths, scale,
+        "wavlm_attention_bwd_dbias", q, k, v, bias, gate, out, dout, m, l, di, lengths, scale,
         dropout_rate, seed, False, True)
     wavlm_attention_bwd_dbias.launches += int(launched)
     return dbias
@@ -444,7 +450,7 @@ class WavLMAttentionFn(torch.autograd.Function):
         else:
             dq, dgate, di = wavlm_attention_bwd_dq(q, k, v, bias, gate, out, dout, m, l,
                                                    lengths, **kw)
-            dbias = wavlm_attention_bwd_dbias(q, k, v, bias, gate, out, dout, m, l,
+            dbias = wavlm_attention_bwd_dbias(q, k, v, bias, gate, out, dout, m, l, di,
                                               lengths, **kw)
             dk, dv = wavlm_attention_bwd_dkv_general(q, k, v, bias, gate, out, dout, m, l,
                                                      di, lengths, **kw)

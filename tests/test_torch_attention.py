@@ -583,6 +583,34 @@ def test_dropout_mask_read_out_of_the_backward(layout, device, dtype):
     assert [f.launches for f in fns] == [c + n for c in before]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_dropout_mask_read_out_of_the_wavlm_general_backward(device, dtype):
+    """The WavLM general route's backward entries (``wavlm_attention_bwd_dq``,
+    ``_dbias`` given dq's di, and ``_dkv_general``) give up the same mask
+    as the single route's pair, read out as in
+    ``test_dropout_mask_read_out_of_the_backward``
+    (``backward_mask_readout(route="general")``): dq, dbias (every batch
+    row's mask), dk and dv, bit for bit the plain mask.  On the card, bf16
+    takes the tensor-core dq, dbias and dkv bodies, fp32 the CUDA-core
+    ones; each entry counts one launch per run, the single pair none."""
+    if device == "cuda":
+        _card()
+    general = (wavlm_attention_bwd_dq, wavlm_attention_bwd_dbias, wavlm_attention_bwd_dkv_general)
+    single = (wavlm_attention_bwd_fused, wavlm_attention_bwd_dkv)
+    before = [f.launches for f in general + single]
+    seeds = (-123456789, 2**31 - 1, -2**31)
+    found = backward_mask_readout("wavlm", device, dtype, seeds, route="general")
+    assert [w for _, w, _, _ in found] == ["dq", "dbias", "dk", "dv"] * len(seeds)
+    for seed, what, got, want in found:
+        assert torch.equal(got, want), f"{what}, seed {seed}: {(got != want).sum().item()} bits"
+        assert 0.85 < want.float().mean().item() < 0.95
+    n = 3 * len(seeds) if device == "cuda" else 0
+    assert [f.launches for f in general + single] == [c + n for c in before[:3]] + before[3:]
+    with pytest.raises(ValueError, match="route"):
+        backward_mask_readout("wavlm", device, dtype, seeds, route="single_block")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_kernels_match_plain_versions_on_card(dtype, atol):
@@ -622,19 +650,19 @@ def test_kernel_body_is_the_tensor_core_one_for_bf16_at_head_dim_64():
         assert kernel_body(dtype, head_dim) == "fma"
 
 
-def test_wavlm_kernel_body_is_the_tensor_core_one_for_the_forwards_and_single_backward_pair():
-    """Of the seven WavLM entries both forwards (wavlm_attention_fwd and
-    _fwd_general, one body) and the single route's backward pair
-    (wavlm_attention_bwd_fused and _dkv) have tensor-core bodies, taken for
-    bf16 at head_dim 64; the general route's three backward entries, and
-    every entry in fp32 or at head_dim 80, run the CUDA-core bodies."""
-    wgmma = ("wavlm_attention_fwd", "wavlm_attention_fwd_general", "wavlm_attention_bwd_fused",
-             "wavlm_attention_bwd_dkv")
+def test_wavlm_kernel_body_is_the_tensor_core_one_for_every_entry_in_bf16_at_64():
+    """All seven WavLM entries (both forwards, the single route's backward
+    pair and the general route's dq, dbias and dkv) run tensor-core bodies
+    in bf16 at head_dim 64, and the CUDA-core bodies in fp32 or at head_dim
+    80; a name that is no entry is refused."""
+    assert len(WAVLM_KERNELS) == 7
     for fn in WAVLM_KERNELS:
         name = fn.__name__
-        assert wavlm_kernel_body(name, torch.bfloat16, 64) == ("wgmma" if name in wgmma else "fma")
+        assert wavlm_kernel_body(name, torch.bfloat16, 64) == "wgmma"
         for dtype, head_dim in ((torch.float32, 64), (torch.float32, 80), (torch.bfloat16, 80)):
             assert wavlm_kernel_body(name, dtype, head_dim) == "fma"
+    with pytest.raises(ValueError, match="no WavLM entry"):
+        wavlm_kernel_body("wavlm_attention_bwd", torch.bfloat16, 64)
 
 
 def _assert_stats(m, l, want_m, want_l):
@@ -827,8 +855,8 @@ WAVLM_KERNELS = (wavlm_attention_fwd, wavlm_attention_bwd_fused, wavlm_attention
 def test_wavlm_backward_kernels_match_plain_versions_on_card(dtype, rel, block_kv, B, L, H,
                                                              lengths, rate):
     """The WavLM forward with dropout and its route's backward kernels
-    (single: fused dq/dgate/dbias and dkv, in bf16 the tensor-core bodies;
-    general, block_kv 128: dq/dgate, dbias and dkv) against their plain
+    (single: fused dq/dgate/dbias and dkv; general, block_kv 128: dq/dgate,
+    dbias and dkv; in bf16 both the tensor-core bodies) against their plain
     versions, through WavLMAttentionFn on (B, H, L, D) views of a fused QKV
     tensor with fp32 bias and gate needing gradients, with the launch
     counts.  A second backward is bit-identical: no float atomics, dbias
@@ -1010,7 +1038,7 @@ def test_wavlm_general_entries_equal_single_entries_on_card():
         dq, dgate, dbias, di = wavlm_attention_bwd_fused(*args, out, dout, m, l, lens, **kw)
         dk, dv = wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lens, **kw)
         dq_g, dgate_g, di_g = wavlm_attention_bwd_dq(*args, out, dout, m, l, lens, **kw)
-        dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, lens, **kw)
+        dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, di_g, lens, **kw)
         dk_g, dv_g = wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g, lens, **kw)
     torch.cuda.synchronize()
     for name, a, b in (("out", out, out_g), ("m", m, m_g), ("l", l, l_g), ("dq", dq, dq_g),
@@ -1018,3 +1046,88 @@ def test_wavlm_general_entries_equal_single_entries_on_card():
                        ("dk", dk, dk_g), ("dv", dv, dv_g)):
         err = (a - b).abs().max().item()
         assert err <= 1e-5 * b.abs().max().item(), f"{name}: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,lengths,rate", [
+    (16, 749, 12, None, 0.1),           # the DPWavLM step
+    (3, 333, 7, [333, 200, 64], 0.1),   # a pruned layer's 7 heads
+    (4, 130, 12, [130, 64, 1, 0], 0.0),  # rows of length 1 and 0
+])
+def test_wavlm_general_backward_equals_single_bit_for_bit_in_bf16_on_card(B, L, H, lengths,
+                                                                           rate):
+    """In bf16 at head_dim 64 the general route's backward entries run the
+    single route's tensor-core bodies (dq, then dbias reading dq's di; dkv)
+    with the same blocks: dq, dgate, di, dbias, dk and dv equal the fused
+    entry's and the single dkv's bit for bit, on (B, H, L, D) views of a
+    fused QKV tensor, and within 2e-2 x max |plain| of the plain backward;
+    each entry counts one launch.  The dbias entry refuses a missing di."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    D = 64
+    qkv = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = (t.view(B, L, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    dout = torch.randn(B, H, L, D, device="cuda", generator=gen).to(torch.bfloat16)
+    bias = torch.randn(H, L, L, device="cuda", generator=gen)
+    gate = 1.0 + 2.0 * torch.rand(B, H, L, device="cuda", generator=gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([-4242], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=seed)
+    args = (q, k, v, bias, gate)
+    general = (wavlm_attention_bwd_dq, wavlm_attention_bwd_dbias, wavlm_attention_bwd_dkv_general)
+    for name in ("wavlm_attention_bwd_dq", "wavlm_attention_bwd_dbias",
+                 "wavlm_attention_bwd_dkv_general"):
+        assert wavlm_kernel_body(name, torch.bfloat16, D) == "wgmma"
+    with torch.no_grad():
+        out, m, l = wavlm_attention_fwd(*args, lens, **kw)
+        dq, dgate, dbias, di = wavlm_attention_bwd_fused(*args, out, dout, m, l, lens, **kw)
+        dk, dv = wavlm_attention_bwd_dkv(*args, out, dout, m, l, di, lens, **kw)
+        n = [f.launches for f in general]
+        dq_g, dgate_g, di_g = wavlm_attention_bwd_dq(*args, out, dout, m, l, lens, **kw)
+        dbias_g = wavlm_attention_bwd_dbias(*args, out, dout, m, l, di_g, lens, **kw)
+        dk_g, dv_g = wavlm_attention_bwd_dkv_general(*args, out, dout, m, l, di_g, lens, **kw)
+        assert [f.launches for f in general] == [c + 1 for c in n]
+        with pytest.raises(ValueError, match="di"):
+            wavlm_attention_bwd_dbias(*args, out, dout, m, l, None, lens, **kw)
+        want = wavlm_attention_bwd_reference(*args, out, dout, lens, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in (("dq", dq_g, dq), ("dgate", dgate_g, dgate), ("di", di_g, di),
+                       ("dbias", dbias_g, dbias), ("dk", dk_g, dk), ("dv", dv_g, dv)):
+        assert torch.equal(a, b), f"general {name} differs from the single route's"
+    for name, got, w in zip(("dq", "dk", "dv", "dbias", "dgate"),
+                            (dq_g, dk_g, dv_g, dbias_g, dgate_g), want):
+        _assert_close(got, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_wavlm_general_backward_refuses_misaligned_views_on_card():
+    """The general route's backward entries in bf16 at head_dim 64 run the
+    tensor-core bodies or raise: views whose pointer is not 16-byte
+    aligned, or whose row stride is not a multiple of 8 elements, get
+    cudaErrorMisalignedAddress (716) and no launch is counted; the
+    CUDA-core body is never taken for them."""
+    _card()
+    B, L, H, D = 2, 100, 12, 64
+    HD = H * D
+    shifted = torch.randn(B, L, 3 * HD + 8, device="cuda").to(torch.bfloat16)[..., 4:]
+    odd_rows = torch.randn(B, L, 3 * HD + 4, device="cuda").to(torch.bfloat16)[..., :3 * HD]
+    bias = torch.randn(H, L, L, device="cuda")
+    gate = torch.rand(B, H, L, device="cuda") + 1.0
+    kw = dict(scale=D ** -0.5)
+    general = (wavlm_attention_bwd_dq, wavlm_attention_bwd_dbias, wavlm_attention_bwd_dkv_general)
+    with torch.no_grad():
+        for qkv in (shifted, odd_rows):
+            q, k, v = (t.unflatten(-1, (H, D)).transpose(1, 2)
+                       for t in (qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:3 * HD]))
+            out, m, l = wavlm_attention_reference(q, k, v, bias, gate, None, **kw)
+            dout = torch.randn_like(out)
+            args = (q, k, v, bias, gate, out, dout, m, l)
+            di = torch.zeros_like(m)
+            n = [f.launches for f in general]
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                wavlm_attention_bwd_dq(*args, None, **kw)
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                wavlm_attention_bwd_dbias(*args, di, None, **kw)
+            with pytest.raises(RuntimeError, match="cudaError 716"):
+                wavlm_attention_bwd_dkv_general(*args, di, None, **kw)
+            assert [f.launches for f in general] == n

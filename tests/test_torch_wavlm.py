@@ -137,12 +137,44 @@ def test_plain_attention_matches_pallas_vjp(B, H, L, D, with_lengths, rate, bloc
         dk, dv = wavlm_attention_bwd_dkv(*args, out, tdo, m, l, di, t_len, **kw)
     else:
         dq, dgate, di = wavlm_attention_bwd_dq(*args, out, tdo, m, l, t_len, **kw)
-        dbias = wavlm_attention_bwd_dbias(*args, out, tdo, m, l, t_len, **kw)
+        dbias = wavlm_attention_bwd_dbias(*args, out, tdo, m, l, di, t_len, **kw)
         dk, dv = wavlm_attention_bwd_dkv_general(*args, out, tdo, m, l, di, t_len, **kw)
     for name, g, t in zip(("dq", "dk", "dv", "dbias", "dgate"), (dq, dk, dv, dbias, dgate),
                           (tq, tk, tv, tb, tg)):
         np.testing.assert_array_equal(g.numpy(), t.grad.numpy(), err_msg=name)
     np.testing.assert_allclose(di.numpy(), (out * tdo).sum(-1).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("with_lengths", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_dbias_entry_with_di_matches_pallas_general_vjp(with_lengths, rate):
+    """``wavlm_attention_bwd_dbias`` given the di that
+    ``wavlm_attention_bwd_dq`` returned (as the TPU package's
+    ``_bwd_dbias_kernel`` reads ``di_ref``) returns, on the CPU, the plain
+    dbias, and that matches dbias of ``wavlm_flash_attention``'s
+    ``jax.vjp`` on the general route (block_kv 128: two KV blocks of the
+    padded 256) in interpret mode, given the same int32 seed; the dq
+    entry's dq and dgate match too.  The CPU path ignores di (a wrong one
+    changes nothing).  fp32, bound 1e-5 x max |reference|."""
+    B, H, L, D = 2, 3, 200, 32
+    q, k, v, bias, gate, do = _attention_inputs(7 + 2 * with_lengths + int(10 * rate), B, H, L, D)
+    lengths = [L, 123] if with_lengths else None
+    _, want_grads, seed = _jax_wavlm_vjp(q, k, v, bias, gate, do, lengths, rate, key_seed=31,
+                                         block_kv=128)
+    assert wavlm_route(L, block_kv=128) == "general"
+    t_len = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    kw = dict(scale=D ** -0.5, dropout_rate=rate, seed=torch.tensor([seed], dtype=torch.int32))
+    args = [torch.from_numpy(x) for x in (q, k, v, bias, gate)]
+    tdo = torch.from_numpy(do)
+    out, m, l = wavlm_attention(*args, t_len, block_kv=128, **kw)
+    dq, dgate, di = wavlm_attention_bwd_dq(*args, out, tdo, m, l, t_len, **kw)
+    dbias = wavlm_attention_bwd_dbias(*args, out, tdo, m, l, di, t_len, **kw)
+    for name, got, ref in (("dbias", dbias, want_grads[3]), ("dq", dq, want_grads[0]),
+                           ("dgate", dgate, want_grads[4])):
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max(), rtol=0,
+                                   err_msg=name)
+    again = wavlm_attention_bwd_dbias(*args, out, tdo, m, l, torch.zeros_like(di), t_len, **kw)
+    np.testing.assert_array_equal(again.numpy(), dbias.numpy())
 
 
 @pytest.mark.parametrize("block_kv", [None, 100])
