@@ -41,7 +41,28 @@ full width with random weights from seeds:
   per-layer remat held against the step without it (fp32, dropout on, the
   same generator seed), then both timed in bf16 at B = 12 x 15 s;
 * the recipe script ``run_torch.sh`` itself, on the card, and its exported
-  checkpoint served.
+  checkpoint served;
+* every timed step of the port's main paths (stage 1, the final distill,
+  DPWavLM on both routes, wav2vec 2.0 Large) also as a CUDA graph of 4
+  steps (``make_train_step(..., steps_per_call=4)``, the trainer's
+  ``--steps_per_dispatch 4``): from the same state and generator, two
+  replays equal 8 eager steps bit for bit (parameters, moments, counters,
+  generator, metrics), both timed in one process, with peak memory
+  (phase "graph_train"); on the recipes' ladders of 12 batch shapes
+  (stage 1 at 160 s a batch, Large at 180 s) every key captured into the
+  one shared pool and replayed in turn, with peak and reserved memory
+  against eager's, and two keys interleaved bit for bit eager (phase
+  "graph_keys"); stage 1 through the CLI on two shapes with 4 groups
+  (phase "pipeline_graphs").  Launches count what ran: the wrappers'
+  counts, less their counts at captures, plus every counted replay's
+  captured launches (``GraphedSteps``'s tally); every kernel entry ran
+  inside a replayed graph on at least one path;
+* the checkpoint path on the stage-1 state (phase "ckpt"): the synchronous
+  write, the background saver's stall and the steps beside its copy and
+  its write over 15 saves, rotation, a resume from a background-written
+  file bit for bit, and the size gate's decision for the Base and the
+  Large state.  The pipelines run with ``--steps_per_dispatch 4
+  --ckpt_backend rotated``, ``run_torch.sh``'s defaults.
 
 Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
@@ -67,6 +88,7 @@ Without a CUDA card the script exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -78,6 +100,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -88,7 +111,7 @@ import dphubert_torch as pt
 from dphubert_torch.models.components import attention_route, output_lengths
 from dphubert_torch.models.gates import gate_paths
 from dphubert_torch.models.hardconcrete import EPS
-from dphubert_torch.ops import _build
+from dphubert_torch.ops import LAUNCH_COUNTERS, _build
 from dphubert_torch.ops.attention_common import kernel_body
 from dphubert_torch.ops.mask_readout import backward_mask_readout, forward_mask_readout
 from dphubert_torch.cli import convert_from_fairseq as cli_convert_from_fairseq
@@ -99,6 +122,7 @@ from dphubert_torch.cli import prepare_data as cli_prepare_data
 from dphubert_torch.cli import prune as cli_prune
 from dphubert_torch.cli import save_final_ckpt as cli_save_final_ckpt
 from dphubert_torch.data import load_audio
+from dphubert_torch.data.sampler import StaticShapeBatcher
 from dphubert_torch.interop.torch_ckpt import load_checkpoint, load_model, save_checkpoint
 from dphubert_torch.ops.flash_attention import (
     flash_attention,
@@ -138,6 +162,16 @@ from dphubert_torch.train import (
     make_grad_fn,
     make_train_step,
 )
+from dphubert_torch.train.checkpointing import (
+    BackgroundSaver,
+    RotatingCheckpointer,
+    background_ckpt_fits,
+    device_snapshot,
+    load_train_state,
+    save_train_state,
+    snapshot_bytes,
+)
+from dphubert_torch.train.distill_module import GraphedSteps, refuse_remat_graphs
 
 REPO = pathlib.Path(__file__).resolve().parent
 SR = 16000
@@ -215,21 +249,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "wavlm_attention_bwd_dbias": ("dphubert_torch/csrc/wavlm_attention.cu",
                                   f"{TPU_OPS}/wavlm_attention.py:844"),
 }
-WRAPPERS = {
-    "packed_attention_fwd": packed_attention,
-    "flash_attention_fwd": flash_attention,
-    "packed_attention_bwd_dq": packed_attention_bwd_dq,
-    "packed_attention_bwd_dkv": packed_attention_bwd_dkv,
-    "flash_attention_bwd_dq": flash_attention_bwd_dq,
-    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-    "wavlm_attention_fwd": wavlm_attention_fwd,
-    "wavlm_attention_bwd_dkv": wavlm_attention_bwd_dkv,
-    "wavlm_attention_bwd_fused": wavlm_attention_bwd_fused,
-    "wavlm_attention_fwd_general": wavlm_attention_fwd_general,
-    "wavlm_attention_bwd_dkv_general": wavlm_attention_bwd_dkv_general,
-    "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
-    "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
-}
+WRAPPERS = LAUNCH_COUNTERS  # name -> the wrapper whose ``launches`` counts it
 # the loader's top rung (cli/common.py: rungs from 32,000 to 250,000
 # samples, 12 shapes): every clip of 249,920 to 250,000 samples lands there,
 # is cropped to 249,920 (15.62 s, L = 780 frames) and batched 5 to a batch
@@ -249,6 +269,7 @@ LARGE_DIR = REPO / "build" / "smoke_large"
 # gradient within 1e-4 of its norm (a dropout mask replayed wrongly moves one
 # by O(1); the two differ only where cuDNN's backward sums in another order)
 REMAT_GRAD_TOL = 1e-4
+GRAPH_K = 4  # steps a dispatch on the graph paths (run_torch.sh's default)
 
 
 def r2_all_attention_config() -> dict:
@@ -1065,13 +1086,28 @@ def phase_wavlm_kernels(spec) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def launch_counts() -> dict:
+def wrapper_counts() -> dict:
+    """Each wrapper's own counter: a CUDA graph's capture counts once (and
+    runs nothing), its replays not at all."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def launch_counts() -> dict:
+    """The launches that ran: the wrappers' counters, less what they
+    counted at graph captures, plus what the counted graph replays ran
+    (``GraphedSteps``'s tally)."""
+    cap, rep = GraphedSteps.captured, GraphedSteps.replayed
+    return {n: c - cap.get(n, 0) + rep.get(n, 0) for n, c in wrapper_counts().items()}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    GraphedSteps.reset_tally()
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
@@ -1401,7 +1437,6 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
     cfg = DistillConfig(compute_dtype="bfloat16")
     state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=5,
                                  device="cuda")
-    del student
     gen = torch.Generator(device="cuda").manual_seed(6)
     T = int(TRAIN_SECONDS * SR)
     batch = (torch.randn(TRAIN_B, T, device="cuda", generator=gen), None)
@@ -1432,6 +1467,14 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
            "batch": [TRAIN_B, T], "L": L, "route": wavlm_route(L) if family == "wavlm" else None,
            **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
+    del state, tx, batch
+    torch.cuda.empty_cache()
+    graph = phase_graph_train(f"graph_{label}", teacher, student, cfg, 5, (TRAIN_B, T),
+                              per_step, TRAIN_B * TRAIN_SECONDS, fields["peak_memory_bytes"])
+    row["graph"] = {f"graph_{label}": graph}
+    if family == "hubert" and label == "train":  # run_torch.sh's 12 shapes at 160 s a batch
+        row["graph"]["graph_keys_train"] = phase_graph_keys("graph_keys_train", teacher,
+                                                            student, cfg, 5, 160)
     return row
 
 
@@ -1474,7 +1517,6 @@ def phase_final_distill_step() -> dict:
     cfg = DistillConfig(use_reg=False, compute_dtype="bfloat16")
     state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=9,
                                  device="cuda")
-    del student
     gen = torch.Generator(device="cuda").manual_seed(10)
     batch = (torch.randn(FINAL_B, TOP_RUNG, device="cuda", generator=gen), None)
     L = int(output_lengths(teacher.spec, torch.tensor([TOP_RUNG]))[0])
@@ -1490,12 +1532,459 @@ def phase_final_distill_step() -> dict:
            "model": "hubert_base teacher, r2-heads student with every attention sublayer",
            "batch": [FINAL_B, TOP_RUNG], "L": L, **fields}
     emit(row)
+    del state, tx, batch
+    torch.cuda.empty_cache()
+    graph = phase_graph_train("graph_final_distill", teacher, student, cfg, 9,
+                              (FINAL_B, TOP_RUNG), per_step, FINAL_B * TOP_RUNG / SR,
+                              fields["peak_memory_bytes"])
+    row["graph"] = {"graph_final_distill": graph}
     return row
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the four-stage pipeline through the port's CLI functions
+# K-step CUDA graphs against eager steps, and the checkpoint path
 # ---------------------------------------------------------------------------
+
+
+def same_snapshot(got, want, what: str) -> int:
+    """Two ``device_snapshot``s bit for bit: every tensor, the counters and
+    the generator; returns the number of tensors compared."""
+    check((got.step, got.count, got.mini_step) == (want.step, want.count, want.mini_step),
+          f"{what}: counters {(got.step, got.count, got.mini_step)} vs "
+          f"{(want.step, want.count, want.mini_step)}")
+    check(torch.equal(got.generator, want.generator), f"{what}: generator states differ")
+    got_t, want_t = got.tensors, want.tensors
+    check(set(got_t) == set(want_t), f"{what}: tensor names differ")
+    diff = [k for k, t in want_t.items() if not torch.equal(got_t[k], t)]
+    check(not diff, f"{what}: {len(diff)} of {len(want_t)} tensors differ, e.g. {diff[:3]}")
+    return len(want_t)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the block (cuDNN's, and PyTorch's own,
+    warning where it has none): cuDNN's default weight-gradient algorithms
+    and the embedding backward of WavLM's bias table sum with atomics, so
+    two eager runs of the same steps differ in the last bits (measured:
+    55 of 816 tensors of the stage-1 state and 764 of 927 of DPWavLM's
+    after 2 steps; with cuDNN's alone, WavLM's 2 table moments still
+    differed), and a graph could not be
+    held to eager bit for bit."""
+    prev = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1])
+
+
+def phase_graph_train(label, teacher, student, cfg, seed, batch_shape, per_step,
+                      audio_per_step, eager_peak, embed_dim: int = 768) -> dict:
+    """``steps_per_call=4`` on the card against eager single steps, from
+    the same state and generator (``seed``), on a stack of 4 batches that
+    stays on the card, dropout on.
+
+    Bits (``deterministic``): the eager run takes 3 groups of 4 steps; the
+    graphed run's first call runs its group eagerly and captures it (the
+    wrappers count exactly 2 x 4 steps' launches, the eager group's and the
+    capture's, and the capture's 4 steps are what ``GraphedSteps``
+    tallies as captured), then two replays must equal the eager run after
+    8 and 12 steps bit for bit (parameters, moments, count, phase,
+    generator, every metric: the second replay shows that each replay
+    reads its own steps' scalars).
+
+    Time (cuDNN's default algorithms, as the trainer runs): a fresh state
+    and a fresh capture, then 3 segments of 3 replays, and 3 segments of 4
+    eager steps, in turns.  ``max_memory_allocated`` of the graphed run
+    alone (its eager group, its capture and a replay; the caller's eager
+    run has its own), and the memory it reserves.
+
+    Launches: counts set to 0 at the start and read at the end, and every
+    step the phase ran, eager or inside a counted replay, must have run
+    exactly ``per_step`` (``launch_counts``)."""
+    B, T = batch_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    stack = torch.randn(GRAPH_K, B, T, device="cuda", generator=gen)
+    ran = 0  # steps run, eager or replayed
+
+    def want(n):
+        return {k: n * v for k, v in per_step.items()}
+
+    def fresh():
+        return init_train_state(student=student, cfg=cfg, teacher_embed_dim=embed_dim,
+                                seed=seed, device="cuda")
+
+    def eager_group(step, state):
+        nonlocal ran
+        steps = []
+        for j in range(GRAPH_K):
+            state, m = step(state, (stack[j], None))
+            steps.append(m)
+        ran += GRAPH_K
+        return state, {k: torch.stack([m[k].float() for m in steps]) for k in steps[0]}
+
+    def graph_group(group, state):
+        nonlocal ran
+        ran += GRAPH_K
+        return group(state, (stack, None))
+
+    reset_launch_counts()
+    with deterministic():
+        a, tx_a = fresh()
+        single = make_train_step(teacher, cfg, tx_a)
+        eager_metrics, eager_snaps = [], []
+        for call in range(3):
+            a, metrics = eager_group(single, a)
+            eager_metrics.append(metrics)
+            if call:
+                eager_snaps.append(device_snapshot(a))
+        del a, single, tx_a
+        b, tx_b = fresh()
+        group = make_train_step(teacher, cfg, tx_b, steps_per_call=GRAPH_K)
+        before = wrapper_counts()
+        b, m = graph_group(group, b)
+        counted = {k: v - before[k] for k, v in wrapper_counts().items()}
+        check(counted == want(2 * GRAPH_K), f"{label}: the first call's wrappers counted "
+              f"{counted}, expected its eager group's and its capture's, 2 x {GRAPH_K} steps")
+        check(GraphedSteps.captured == nonzero(want(GRAPH_K)),
+              f"{label}: captured {GraphedSteps.captured}, expected {GRAPH_K} steps")
+        for k, v in eager_metrics[0].items():
+            check(torch.equal(m[k], v), f"{label}: the first (eager) group's {k} differs")
+        n_tensors = 0
+        for r in range(2):
+            b, m = graph_group(group, b)
+            n_tensors = same_snapshot(device_snapshot(b), eager_snaps[r],
+                                      f"{label} replay {r + 1}")
+            for k, v in eager_metrics[r + 1].items():
+                check(torch.equal(m[k], v), f"{label} replay {r + 1}: metric {k} "
+                      f"{m[k].tolist()} vs eager {v.tolist()}")
+        check(GraphedSteps.replays == 2
+              and GraphedSteps.replayed == nonzero(want(2 * GRAPH_K)),
+              f"{label}: {GraphedSteps.replays} replays ran {GraphedSteps.replayed}")
+        del b, group, tx_b, eager_snaps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    b, tx_b = fresh()
+    group = make_train_step(teacher, cfg, tx_b, steps_per_call=GRAPH_K)
+    t0 = time.perf_counter()
+    b, m = graph_group(group, b)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    b, m = graph_group(group, b)
+    torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated()  # one state, its graph and its eager group
+    graph_reserved = torch.cuda.memory_reserved()
+    a, tx_a = fresh()
+    single = make_train_step(teacher, cfg, tx_a)
+    a, _ = eager_group(single, a)  # warm
+    eager_seg, graph_seg = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            b, m = graph_group(group, b)
+        torch.cuda.synchronize()
+        graph_seg.append((time.perf_counter() - t0) / (3 * GRAPH_K))
+        t0 = time.perf_counter()
+        a, _ = eager_group(single, a)
+        torch.cuda.synchronize()
+        eager_seg.append((time.perf_counter() - t0) / GRAPH_K)
+    for k, v in m.items():
+        check(bool(torch.isfinite(v).all()), f"{label}: {k} = {v.tolist()}")
+    check(len(group.graphs) == 1, f"{label}: {len(group.graphs)} graphs for one key")
+    counts = launch_counts()
+    check(counts == want(ran), f"{label}: {ran} steps ran {counts}, expected {per_step} a step")
+    eager_s, graph_s = statistics.median(eager_seg), statistics.median(graph_seg)
+    row = {"phase": "graph_train", "path": label, "k": GRAPH_K, "batch": [B, T],
+           "dtype": cfg.compute_dtype, "bit_exact_replays": 2, "tensors_compared": n_tensors,
+           "metrics_compared": sorted(eager_metrics[0]),
+           "eager_step_s": eager_s, "eager_segments_s": eager_seg,
+           "graph_step_s": graph_s, "graph_segments_s": graph_seg,
+           "graph_over_eager": graph_s / eager_s,
+           "eager_audio_sec_per_s": audio_per_step / eager_s,
+           "graph_audio_sec_per_s": audio_per_step / graph_s,
+           "first_call_s": first_call_s,
+           "graph_peak_memory_bytes": graph_peak, "graph_reserved_bytes": graph_reserved,
+           "eager_peak_memory_bytes": eager_peak, "graph_over_eager_peak": graph_peak / eager_peak,
+           "launches_per_replay": want(GRAPH_K), "steps_run": ran,
+           "replays": GraphedSteps.replays, "launches": counts,
+           "launches_in_graphs": dict(GraphedSteps.replayed)}
+    emit(row)
+    del a, b, group, single, tx_a, tx_b, stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def rung_ladder(seconds_per_batch: float):
+    """The loader's (batch size, samples) shapes at ``seconds_per_batch``:
+    ``cli/common.py``'s 12 rungs from 32,000 to 250,000 samples."""
+    batcher = StaticShapeBatcher([250_000], max_token_count=int(seconds_per_batch * SR),
+                                 min_len=32_000, max_len=250_000, num_shapes=12)
+    return [(batcher.batch_sizes[r], r) for r in batcher.rungs]
+
+
+def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
+                     embed_dim: int = 768, interleaved: bool = True) -> dict:
+    """Many keys in the one shared pool of ``GraphedSteps``, at full width,
+    on the loader's ladder at ``seconds_per_batch`` (the recipe's 12
+    shapes; dropout on, bf16).
+
+    ``interleaved`` (``deterministic``): two keys, the top rung and a
+    short one, called A B A B A B (each key's first group eager and
+    captured, then two replays each, in turn) against the same 24 eager
+    single steps: bit for bit after every group, so no replay overwrites
+    what another graph left live.
+
+    Memory (cuDNN's default algorithms, as the trainer runs): one eager
+    step on every rung (the eager peak), then all 12 keys captured into
+    the pool and each replayed once, in turn (timed as one cycle): peak
+    and reserved memory against eager's, and what stays reserved once the
+    allocator's cache is emptied (the graphs' pool and the live state).
+    Launches: every step run, eager or replayed, exactly its rung's."""
+    ladder = rung_ladder(seconds_per_batch)
+    per_rung = {}
+    for B, T in ladder:
+        L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
+        per_rung[(B, T)] = add_counts((1, model_launches(teacher.spec, L, False)),
+                                      (1, model_launches(student.spec, L, True)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2000)
+    stacks = {}
+
+    def stack(shape):
+        if shape not in stacks:
+            stacks[shape] = torch.randn(GRAPH_K, *shape, device="cuda", generator=gen)
+        return stacks[shape]
+
+    def fresh():
+        return init_train_state(student=student, cfg=cfg, teacher_embed_dim=embed_dim,
+                                seed=seed, device="cuda")
+
+    expected = dict.fromkeys(WRAPPERS, 0)
+
+    def ran(shape, n):
+        for k, v in per_rung[shape].items():
+            expected[k] += n * v
+
+    reset_launch_counts()
+    row = {"phase": "graph_keys", "path": label, "k": GRAPH_K, "dtype": cfg.compute_dtype,
+           "seconds_per_batch": seconds_per_batch, "ladder": ladder}
+    if interleaved:
+        keys = [ladder[-1], ladder[len(ladder) // 2]]
+        with deterministic():
+            a, tx_a = fresh()
+            b, tx_b = fresh()
+            single = make_train_step(teacher, cfg, tx_a)
+            group = make_train_step(teacher, cfg, tx_b, steps_per_call=GRAPH_K)
+            for call in range(6):
+                shape = keys[call % 2]
+                waves = stack(shape)
+                want = []
+                for j in range(GRAPH_K):
+                    a, m = single(a, (waves[j], None))
+                    want.append(m)
+                b, got = group(b, (waves, None))
+                ran(shape, 2 * GRAPH_K)
+                n_tensors = same_snapshot(device_snapshot(b), device_snapshot(a),
+                                          f"{label} interleaved group {call} {shape}")
+                for k, v in got.items():
+                    check(torch.equal(v, torch.stack([m[k].float() for m in want])),
+                          f"{label} interleaved group {call}: metric {k}")
+            check(len(group.graphs) == 2 and GraphedSteps.replays == 4,
+                  f"{label}: {len(group.graphs)} graphs, {GraphedSteps.replays} replays")
+            row.update(interleaved_keys=keys, interleaved_groups=6, interleaved_replays=4,
+                       interleaved_bit_exact_tensors=n_tensors)
+            del a, b, tx_a, tx_b, single, group
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    b, tx_b = fresh()
+    single = make_train_step(teacher, cfg, tx_b)
+    for shape in ladder:
+        b, m = single(b, (stack(shape)[0], None))
+        ran(shape, 1)
+    torch.cuda.synchronize()
+    eager = {"peak_allocated": torch.cuda.max_memory_allocated(),
+             "peak_reserved": torch.cuda.max_memory_reserved(),
+             "reserved": torch.cuda.memory_reserved()}
+    torch.cuda.reset_peak_memory_stats()
+    group = make_train_step(teacher, cfg, tx_b, steps_per_call=GRAPH_K)
+    replays0 = GraphedSteps.replays
+    t0 = time.perf_counter()
+    for shape in ladder:  # each key's first group: eager, then captured
+        b, m = group(b, (stack(shape), None))
+        ran(shape, GRAPH_K)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for shape in ladder:  # one replay of every key, in turn
+        b, m = group(b, (stack(shape), None))
+        ran(shape, GRAPH_K)
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    for k, v in m.items():
+        check(bool(torch.isfinite(v).all()), f"{label}: {k} = {v.tolist()}")
+    check(len(group.graphs) == len(ladder) and GraphedSteps.replays - replays0 == len(ladder),
+          f"{label}: {len(group.graphs)} graphs, {GraphedSteps.replays - replays0} replays "
+          f"for {len(ladder)} keys")
+    graphs = {"peak_allocated": torch.cuda.max_memory_allocated(),
+              "peak_reserved": torch.cuda.max_memory_reserved(),
+              "reserved": torch.cuda.memory_reserved(),
+              "allocated": torch.cuda.memory_allocated()}
+    torch.cuda.empty_cache()
+    graphs["reserved_after_empty_cache"] = torch.cuda.memory_reserved()
+    counts = launch_counts()
+    check(counts == expected, f"{label}: launches {counts}, expected {expected}")
+    audio = sum(B * T for B, T in ladder) * GRAPH_K / SR
+    row.update(keys_captured=len(group.graphs), eager_memory=eager, graph_memory=graphs,
+               graph_over_eager_peak_reserved=graphs["peak_reserved"] / eager["peak_reserved"],
+               capture_seconds_all_keys=capture_s, replay_cycle_s=cycle_s,
+               replay_cycle_audio_sec_per_s=audio / cycle_s,
+               replays=GraphedSteps.replays, launches=counts,
+               launches_in_graphs=dict(GraphedSteps.replayed))
+    emit(row)
+    del b, tx_b, single, group, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+CKPT_SAVES = 15  # timed background saves (and one more for the resume)
+
+
+def phase_ckpt(large: dict) -> dict:
+    """The checkpoint path on the HuBERT Base stage-1 state (bf16 step at B
+    = 16 x 15 s, dropout on), timed under cuDNN's default algorithms, as
+    the trainer runs: the synchronous ``last.pt`` write; then 15
+    background saves, each after one step alone (no save in flight):
+    ``submit``'s host time (the device snapshot), the step right after it
+    with only the pinned copy on the side stream beside it (the writer
+    holds the write until that step ends), and the steps while the file is
+    written.  Between the 8th and the 9th, under deterministic algorithms
+    (``deterministic``), a fresh state resumed from a background-written
+    file and stepped 2 steps must equal the live run bit for bit.
+    Rotation under ``keep`` = 3 over the 16 saves; ``background_ckpt_fits``
+    for this state and for the Large one (``large``, from
+    ``phase_large_train``)."""
+    ck_dir = REPO / "build" / "smoke_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_dir.mkdir(parents=True)
+    teacher, student = distill_models("cuda")
+    cfg = DistillConfig(compute_dtype="bfloat16")
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=27,
+                                 device="cuda")
+    step = make_train_step(teacher, cfg, tx)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    T = int(TRAIN_SECONDS * SR)
+    batches = [torch.randn(TRAIN_B, T, device="cuda", generator=gen) for _ in range(2)]
+
+    def timed_step(i):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, _ = step(state, (batches[i % 2], None))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for i in range(2):  # warm
+        timed_step(i)
+    t0 = time.perf_counter()
+    save_train_state(ck_dir / "last.pt", state)
+    sync_write_s = time.perf_counter() - t0
+    file_bytes = (ck_dir / "last.pt").stat().st_size
+
+    mgr = RotatingCheckpointer(ck_dir / "rotated", keep=3)
+    events, copied_only = [], threading.Event()
+
+    def write(snap, **kw):
+        events.append(time.perf_counter())  # the snapshot is on the host
+        copied_only.wait()  # held until the step beside the copy has ended
+        mgr.save(snap.step, snap, **kw)
+        events.append(time.perf_counter())
+
+    def gated_save():
+        """a step alone, submit, one step beside the copy alone, then the
+        write: returns (step alone s, submit s, copy step s, steps beside
+        the write, copy done s, write done s, whether the copy landed
+        within its step)."""
+        alone = timed_step(1)
+        events.clear()
+        copied_only.clear()
+        t0 = time.perf_counter()
+        saver.submit(state)
+        submit = time.perf_counter() - t0
+        copy_step = timed_step(0)
+        within = bool(events)
+        copied_only.set()
+        beside = []
+        while saver.in_flight():
+            beside.append(timed_step(len(beside) + 1))
+        check(len(events) == 2, "the background save did not land")
+        return alone, submit, copy_step, beside, events[0] - t0, events[1] - t0, within
+
+    saver = BackgroundSaver(write)
+    t0 = time.perf_counter()
+    saver.reserve(state)  # the trainer pins the buffers before its first step
+    reserve_s = time.perf_counter() - t0
+    saves = [gated_save() for _ in range(CKPT_SAVES // 2 + 1)]
+
+    # resume from a background-written file: a fresh state (another seed)
+    # loaded from it and stepped on the same 2 batches equals the live run
+    with deterministic():
+        resume_step = state.step
+        copied_only.set()
+        saver.submit(state)
+        for i in range(2):
+            timed_step(i)
+        saver.wait()
+        live = device_snapshot(state)
+        fresh, fresh_tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768,
+                                           seed=99, device="cuda")
+        pos = load_train_state(mgr.path(resume_step), fresh)
+        fresh_step = make_train_step(teacher, cfg, fresh_tx)
+        for i in range(2):
+            fresh, _ = fresh_step(fresh, (batches[i], None))
+        n_tensors = same_snapshot(device_snapshot(fresh), live, "resume from a background file")
+        del fresh, fresh_tx, fresh_step, live
+
+    saves += [gated_save() for _ in range(CKPT_SAVES - len(saves))]
+    check(saver.close() is None, "background save failed")
+    on_disk = sorted(p.name for p in mgr.directory.iterdir())
+    check(len(on_disk) == 3 and mgr.path(resume_step).name not in on_disk,
+          f"rotation under keep 3 left {on_disk}")
+    alone, submit_s, copy_steps, beside, copy_s, write_s, within = (list(x) for x in zip(*saves))
+    beside = [t for b in beside for t in b]
+    paired = [c / a for c, a in zip(copy_steps, alone)]
+    base_bytes = snapshot_bytes(state)
+    alone_s = statistics.median(alone)
+    row = {"phase": "ckpt", "state": "hubert_base stage 1 (gated student, moments)",
+           "timed_under": "cuDNN's default algorithms (the resume's bits: deterministic)",
+           "state_bytes": base_bytes, "file_bytes": file_bytes,
+           "sync_write_s": sync_write_s, "reserve_pinned_s": reserve_s,
+           "background_saves": len(saves), "submit_s": submit_s,
+           "background_copy_done_s": copy_s, "copy_done_within_its_step": within,
+           "background_write_done_s": write_s,
+           "step_alone_s": alone, "step_alone_min_median_max_s": [min(alone), alone_s, max(alone)],
+           "steps_copy_in_flight_s": copy_steps, "steps_write_in_flight_s": beside,
+           "copy_steps_median_over_alone": statistics.median(copy_steps) / alone_s,
+           "copy_step_over_its_alone_step": paired,
+           "copy_step_over_its_alone_step_median": statistics.median(paired),
+           "write_steps_median_over_alone": statistics.median(beside) / alone_s,
+           "rotated_on_disk": on_disk, "resume_bit_exact_tensors": n_tensors,
+           "resume_position": list(pos),
+           "background_ckpt_fits": {"base": background_ckpt_fits(state),
+                                    "large": large["fits"]},
+           "snapshot_bytes": {"base": base_bytes, "large": large["bytes"]},
+           "card_total_bytes": torch.cuda.mem_get_info()[1]}
+    emit(row)
+    del state, tx, step, batches
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
 
 
 def write_wav(path, wave: np.ndarray) -> None:
@@ -1521,6 +2010,33 @@ def write_corpus(pipe_dir: pathlib.Path, rng):
         for i in range(n):
             samples = TOP_RUNG + int(rng.integers(0, 81))  # 15.62-15.625 s: the top rung
             write_wav(root / sub / f"{prefix}{i:03d}.wav", 0.1 * rng.standard_normal(samples))
+    cli_prepare_data.cli_main(["--data", str(root), "--out", str(tsv), "--extension", "wav"])
+    return root, tsv
+
+
+GRAPH_RUNGS = ((TOP_RUNG, 40), (142_400, 72))  # (rung, clips): 8 batches each at 87.5 s
+
+
+def write_graph_corpus(corpus_dir: pathlib.Path, rng):
+    """A corpus on two of the loader's rungs with 8 batches each at the
+    default 87.5 s a batch (40 clips of 249,920-250,000 samples, B = 5;
+    72 of 142,400-142,480, B = 9), so that ``--steps_per_dispatch 4``
+    forms two groups on each shape, and the usual 5 validation clips ->
+    (root, tsv)."""
+    root, tsv = corpus_dir / "librispeech", corpus_dir / "tsv"
+    shutil.rmtree(corpus_dir, ignore_errors=True)
+    train = root / "train-clean-100/5/6"
+    train.mkdir(parents=True)
+    i = 0
+    for rung, n in GRAPH_RUNGS:
+        for _ in range(n):
+            samples = rung + int(rng.integers(0, 81))
+            write_wav(train / f"g{i:03d}.wav", 0.1 * rng.standard_normal(samples))
+            i += 1
+    (root / "dev-clean/7/8").mkdir(parents=True)
+    for i in range(FINAL_B):
+        write_wav(root / "dev-clean/7/8" / f"d{i:03d}.wav",
+                  0.1 * rng.standard_normal(TOP_RUNG + int(rng.integers(0, 81))))
     cli_prepare_data.cli_main(["--data", str(root), "--out", str(tsv), "--extension", "wav"])
     return root, tsv
 
@@ -1606,7 +2122,8 @@ def phase_pipeline() -> dict:
     L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
     common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
               "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
-              "--num_workers", "4", "--device", "cuda"]
+              "--num_workers", "4", "--device", "cuda",
+              "--steps_per_dispatch", str(GRAPH_K), "--ckpt_backend", "rotated"]
     stages = Stages(spec_t, L, valid_batches=1)
 
     exp1, exp1b = pipe_dir / "stage1", pipe_dir / "stage1_deadline"
@@ -1623,12 +2140,15 @@ def phase_pipeline() -> dict:
                    code=76)
     finally:
         del os.environ["DPHUBERT_DEADLINE_TS"]
-    last = exp1b / "ckpts" / "last.pt"
-    check(last.exists() and not (exp1b / "ckpts" / "distilled.pth").exists(),
-          "the deadline stop must checkpoint and export nothing")
+    last = exp1b / "ckpts" / "rotated"
+    check((last / "step_1.pt").exists() and not (exp1b / "ckpts" / "distilled.pth").exists(),
+          "the deadline stop must checkpoint (ckpts/rotated/step_1.pt) and export nothing")
     stages.run("distill, resumed", cli_distill, argv1b + ["--resume_checkpoint", str(last)],
                student_spec=spec_t, steps=2, valid_passes=1)
     check((exp1b / "ckpts" / "distilled.pth").exists(), "the resumed stage 1 exported nothing")
+    rotated = sorted(p.name for p in last.glob("step_*.pt"))
+    check(rotated == ["step_1.pt", "step_3.pt"], f"stage 1 resumed: rotated files {rotated}")
+    graphs = phase_pipeline_graphs(pipe_dir, stages, teacher_ckpt, rng)
 
     stages.run("prune", cli_prune, ["--distilled_ckpt", str(distilled),
                                     "--original_ckpt", str(teacher_ckpt)])
@@ -1665,10 +2185,59 @@ def phase_pipeline() -> dict:
            "pruned_config": {k: pruned_cfg[k] for k in ("encoder_num_heads",
                                                           "encoder_ff_interm_features",
                                                           "encoder_use_attention")},
-           "launches": stages.total}
+           "launches": stages.total, "launches_in_graphs": graphs}
     emit(row)
     shutil.rmtree(pipe_dir, ignore_errors=True)
     return row
+
+
+def phase_pipeline_graphs(pipe_dir, stages, teacher_ckpt, rng) -> dict:
+    """Stage 1 through the CLI on the two-rung corpus (``write_graph_corpus``):
+    16 updates with ``--steps_per_dispatch 1`` and then with 4 (a rotated
+    background checkpoint every 4 steps, so the capture after the first
+    group waits for a save in flight), each from the teacher.  With K = 4
+    the loader's runs form 4 groups, 2 on each shape: 2 keys captured into
+    one pool and each replayed once (counted), and every update's launches
+    ran (``Stages``).  Peak and reserved memory of both runs;
+    returns the launches that ran inside replays."""
+    root, tsv = write_graph_corpus(pipe_dir / "graphs", rng)
+    spec_t = stages.spec_t
+    per_rung = [model_launches(spec_t, int(output_lengths(spec_t, torch.tensor([r]))[0]), True)
+                for r, _ in GRAPH_RUNGS]
+    check(per_rung[0] == per_rung[1], f"stage 1 launches differ by rung: {per_rung}")
+    argv = ["--tsv_dir", str(tsv), "--train_subset", "train100",
+            "--teacher_ckpt", str(teacher_ckpt), "--student_ckpt", str(teacher_ckpt),
+            "--log_interval", "1", "--num_workers", "4", "--device", "cuda",
+            "--max_updates", "16", "--ckpt_interval", "4", "--ckpt_backend", "rotated"]
+    memory = {}
+    for k in (1, GRAPH_K):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exp = pipe_dir / f"stage1_graphs_k{k}"
+        stages.run(f"distill, two rungs, K = {k}", cli_distill,
+                   argv + ["--exp_dir", str(exp), "--steps_per_dispatch", str(k)],
+                   student_spec=spec_t, steps=16, valid_passes=1)
+        memory[f"k{k}"] = {"peak_allocated": torch.cuda.max_memory_allocated(),
+                           "peak_reserved": torch.cuda.max_memory_reserved()}
+        rotated = sorted(p.name for p in (exp / "ckpts" / "rotated").glob("step_*.pt"))
+        check(rotated == ["step_12.pt", "step_16.pt", "step_8.pt"],
+              f"K = {k}: rotated files {rotated}")
+        steps = [json.loads(line)["step"] for line in (exp / "metrics.jsonl").open()]
+        check(steps == list(range(1, 17)), f"K = {k}: logged steps {steps}")
+    per_step = stages.rows[-1]["launches_per_step"]
+    in_graphs = dict(GraphedSteps.replayed)
+    check(GraphedSteps.replays == 2 and in_graphs == nonzero({n: 2 * GRAPH_K * v
+                                                             for n, v in per_step.items()}),
+          f"K = 4 through the CLI: {GraphedSteps.replays} replays ran {in_graphs}; "
+          "expected 2 keys, each captured once and replayed once")
+    emit({"phase": "pipeline_graphs", "rungs": GRAPH_RUNGS, "updates": 16, "k": GRAPH_K,
+          "keys": 2, "replays": GraphedSteps.replays, "memory": memory,
+          "k4_over_k1_peak_reserved": memory[f"k{GRAPH_K}"]["peak_reserved"]
+          / memory["k1"]["peak_reserved"],
+          "seconds": {r["stage"]: r["seconds"] for r in stages.rows[-2:]}})
+    shutil.rmtree(pipe_dir / "graphs", ignore_errors=True)
+    return in_graphs
 
 
 def phase_wavlm_pipeline() -> dict:
@@ -1691,7 +2260,8 @@ def phase_wavlm_pipeline() -> dict:
     L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
     common = ["--tsv_dir", str(tsv), "--train_subset", "train100",
               "--teacher_ckpt", str(teacher_ckpt), "--log_interval", "1",
-              "--num_workers", "4", "--device", "cuda"]
+              "--num_workers", "4", "--device", "cuda",
+              "--steps_per_dispatch", str(GRAPH_K), "--ckpt_backend", "rotated"]
     stages = Stages(spec_t, L, valid_batches=1)
     exp1, exp2 = pipe_dir / "stage1", pipe_dir / "stage2"
     stages.run("wavlm distill", cli_distill, common + ["--student_ckpt", str(teacher_ckpt),
@@ -1935,6 +2505,17 @@ def phase_large_train(converted) -> dict:
         state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
                                        per_step, LARGE_B * TRAIN_SECONDS)
         runs[label] = fields
+        if not remat:  # the background saver's decision for this state, and the graphs
+            ckpt = {"bytes": snapshot_bytes(state), "fits": background_ckpt_fits(state)}
+            plain = (cfg, per_step, fields["peak_memory_bytes"])
+        else:  # a graph cannot replay remat's host-side generator calls: refused
+            try:
+                refuse_remat_graphs(cfg, GRAPH_K, "cuda")
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            check(refused is not None and "remat" in refused,
+                  "remat with steps_per_dispatch > 1 was not refused on the card")
         total = {k: total[k] + fields["launches"][k] for k in total}
         emit({"phase": label, "model": "wav2vec2_large teacher (converted from fairseq), "
                                         "gated wav2vec2_large student",
@@ -1942,15 +2523,26 @@ def phase_large_train(converted) -> dict:
               "L": L, **fields})
         del state, tx
         torch.cuda.empty_cache()
-    plain, remat_ = runs["large_train"], runs["large_train_remat"]
+    plain_, remat_ = runs["large_train"], runs["large_train_remat"]
     emit({"phase": "large_train_summary",
-          "step_s": {"plain": plain["step_s"], "remat": remat_["step_s"]},
-          "remat_time_ratio": remat_["step_s"] / plain["step_s"],
-          "peak_memory_bytes": {"plain": plain["peak_memory_bytes"],
-                                "remat": remat_["peak_memory_bytes"]}})
+          "step_s": {"plain": plain_["step_s"], "remat": remat_["step_s"]},
+          "remat_time_ratio": remat_["step_s"] / plain_["step_s"],
+          "peak_memory_bytes": {"plain": plain_["peak_memory_bytes"],
+                                "remat": remat_["peak_memory_bytes"]},
+          "remat_with_graphs_refused": refused})
+    del batch
+    torch.cuda.empty_cache()
+    # run_large_torch.sh's default: K = 4 graphs without remat, on its
+    # ladder at 180 s a batch
+    cfg, per_step, peak = plain
+    graph = {"graph_large_train": phase_graph_train(
+        "graph_large_train", teacher, student, cfg, 25, (LARGE_B, T), per_step,
+        LARGE_B * TRAIN_SECONDS, peak, embed_dim=1024)}
+    graph["graph_keys_large"] = phase_graph_keys("graph_keys_large", teacher, student, cfg, 25,
+                                                 180, embed_dim=1024, interleaved=False)
     del teacher, student
     torch.cuda.empty_cache()
-    return {"launches": total, **runs}
+    return {"launches": total, **runs, "ckpt": ckpt, "graph": graph}
 
 
 def phase_recipe_driver() -> dict:
@@ -1987,12 +2579,16 @@ def phase_recipe_driver() -> dict:
     final = exp / "dphubert.pth"
     check(proc.returncode == 0 and final.exists() and f"Done: {final}" in proc.stdout,
           f"run_torch.sh exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    rotated = {stage: sorted(p.name for p in (exp / stage / "ckpts" / "rotated").glob("*.pt"))
+               for stage in ("stage1", "stage2")}
+    check(rotated == {"stage1": ["step_3.pt"], "stage2": ["step_2.pt"]},
+          f"run_torch.sh's default rotated checkpoints: {rotated}")
     stage_lines = [line for line in proc.stdout.splitlines() if line.startswith("[run_torch.sh]")]
     L = int(output_lengths(spec_t, torch.tensor([TOP_RUNG]))[0])
     stages = Stages(spec_t, L, valid_batches=1)
     stages.serve(final, root, rng)
     row = {"phase": "recipe_driver", "script": "run_torch.sh", "exit": proc.returncode,
-           "seconds": seconds, "stages": stage_lines,
+           "seconds": seconds, "stages": stage_lines, "rotated": rotated,
            "load_dpmodel": [line for line in proc.stdout.splitlines()
                             if line.startswith(("Loaded", "extract_features"))],
            "launches": stages.total}
@@ -2022,6 +2618,7 @@ def main() -> int:
     reset_launch_counts()
     phase_slice("hubert_base", base)
     path_launches = {"serve": launch_counts()}
+    graph_paths = {}  # the graph phases' rows, by path
     del base
 
     cfg = json.loads(R2_CONFIG.read_text())
@@ -2034,14 +2631,19 @@ def main() -> int:
     # path 2: the stage-1 distill step (timed_steps resets the counts before
     # its steps and reads them after)
     phase_train_check()
-    path_launches["train"] = phase_train()["launches"]
+    train_row = phase_train()
+    path_launches["train"] = train_row["launches"]
+    graph_paths.update(train_row["graph"])
 
     # path 3: the final-distill step of a student on the flash route, then
     # the whole recipe through the CLIs (each stage resets and reads)
     phase_final_distill_check()
     final_step = phase_final_distill_step()
     path_launches["final_distill"] = final_step["launches"]
-    path_launches["pipeline"] = phase_pipeline()["launches"]
+    graph_paths.update(final_step["graph"])
+    pipeline = phase_pipeline()
+    path_launches["pipeline"] = pipeline["launches"]
+    graph_paths["pipeline"] = pipeline
 
     # path 4: DPWavLM: WavLM Base and the pruned WavLM student served, the
     # step checked on both routes, the timed bf16 step on the single route
@@ -2059,7 +2661,10 @@ def main() -> int:
     path_launches["wavlm_general"] = phase_wavlm_general_check()["launches"]
     wavlm_step = phase_train("wavlm")
     path_launches["wavlm_train"] = wavlm_step["launches"]
-    path_launches["wavlm_general_train"] = phase_wavlm_general_train(wavlm_step)["launches"]
+    graph_paths.update(wavlm_step["graph"])
+    general_step = phase_wavlm_general_train(wavlm_step)
+    path_launches["wavlm_general_train"] = general_step["launches"]
+    graph_paths.update(general_step["graph"])
     path_launches["wavlm_pipeline"] = phase_wavlm_pipeline()["launches"]
 
     # path 5: wav2vec 2.0 Large (run_large.sh): the packed kernels at its
@@ -2073,9 +2678,20 @@ def main() -> int:
     check_launches = phase_large_remat_check(converted)["launches"]
     path_launches["large_remat_check"] = add_counts((1, check_launches["plain"]),
                                                     (1, check_launches["remat"]))
-    path_launches["large_train"] = phase_large_train(converted)["launches"]
+    large_train = phase_large_train(converted)
+    path_launches["large_train"] = large_train["launches"]
+    graph_paths.update(large_train["graph"])
     shutil.rmtree(LARGE_DIR, ignore_errors=True)
+
+    # path 6: the checkpoint path (sync write, background saver, rotation,
+    # resume) on the Base stage-1 state; launches as single steps
+    reset_launch_counts()
+    phase_ckpt(large_train["ckpt"])
+    path_launches["ckpt"] = launch_counts()
     path_launches["recipe_driver"] = phase_recipe_driver()["launches"]
+    for path, row in graph_paths.items():
+        path_launches[path] = row["launches"]
+    graph_replayed = {p: row["launches_in_graphs"] for p, row in graph_paths.items()}
 
     bf16 = torch.bfloat16
     rows = {
@@ -2104,6 +2720,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_in_graphs": {p: c[name] for p, c in graph_replayed.items() if c.get(name)},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": r["dtype"],
@@ -2126,6 +2743,9 @@ def main() -> int:
             entry["serve"]["shape"] = sr.get("shape_BLHD") or sr["shape_BHLD"]
         line.append(entry)
     check(len(line) == len(KERNELS) == 13, f"kernels line holds {len(line)} entries")
+    # every entry launched inside a replayed K-step graph on some path
+    in_graphs = {e["name"]: e["launches_in_graphs"] for e in line}
+    check(all(in_graphs.values()), f"entries never replayed in a graph: {in_graphs}")
     # bf16 on the tensor cores: every entry
     bodies = {e["name"]: e["body"] for e in line}
     check(set(bodies.values()) == {"wgmma"}, f"bf16 bodies of the entries: {bodies}")

@@ -42,7 +42,9 @@ def build_loader(args, subset: str, shuffle_seed: int = 0) -> DistillDataLoader:
     """``seconds_per_batch`` is the audio budget of one batch, as in the
     reference CLI; the rung ladder is the TPU package's (32,000 to 250,000
     samples, ``num_shapes`` rungs).  Batches are fed as int16 PCM (half the
-    host-to-card bytes of float32, and the same values)."""
+    host-to-card bytes of float32, and the same values).  The epoch comes
+    in same-rung runs of ``--steps_per_dispatch`` batches, so that the
+    trainer can stack them into one dispatch."""
     dataset = AudioDataset(args.tsv_dir, subset)
     batcher = StaticShapeBatcher(
         dataset.len_list,
@@ -51,6 +53,7 @@ def build_loader(args, subset: str, shuffle_seed: int = 0) -> DistillDataLoader:
         max_len=250000,
         num_shapes=args.num_shapes,
         seed=shuffle_seed,
+        run_length=getattr(args, "steps_per_dispatch", 1),
     )
     return DistillDataLoader(dataset, batcher, num_workers=args.num_workers,
                              seed=shuffle_seed, feed_dtype="int16")

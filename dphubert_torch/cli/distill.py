@@ -14,7 +14,8 @@ Exit codes: 0 done (``<exp_dir>/ckpts/distilled.pth`` written), 75 stopped
 by a SIGTERM or the RSS watchdog (``DPHUBERT_MAX_RSS_GB``; resumable), 76
 stopped by the ``DPHUBERT_DEADLINE_TS`` deadline (resumable; a recipe
 script must not resume into the same deadline).  Resume with
-``--resume_checkpoint <exp_dir>/ckpts/last.pt``.
+``--resume_checkpoint <exp_dir>/ckpts/last.pt`` (``--ckpt_backend last``)
+or ``<exp_dir>/ckpts/rotated`` (``rotated``: the newest step in it).
 """
 
 from __future__ import annotations
@@ -42,9 +43,22 @@ def add_common_training_args(parser: ArgumentParser) -> None:
     parser.add_argument("--num_shapes", default=12, type=int,
                         help="Number of static length buckets.")
     parser.add_argument("--resume_checkpoint", type=pathlib.Path, default=None,
-                        help="The training-state file <exp_dir>/ckpts/last.pt.")
+                        help="A training-state file (<exp_dir>/ckpts/last.pt) or a "
+                        "directory of rotated ones (<exp_dir>/ckpts/rotated: its newest).")
     parser.add_argument("--exp_dir", default=pathlib.Path("./exp"), type=pathlib.Path)
     parser.add_argument("--ckpt_interval", default=1000, type=int)
+    parser.add_argument("--ckpt_backend", default="last", choices=["last", "rotated"],
+                        help="last: one file, ckpts/last.pt (the TPU package's npz); "
+                        "rotated: ckpts/rotated/step_<n>.pt, the newest --ckpt_keep kept "
+                        "(its orbax).  Either is written by a background thread unless "
+                        "DPHUBERT_SYNC_CKPT=1 or the state is too large for the card.")
+    parser.add_argument("--ckpt_keep", default=3, type=int,
+                        help="Rotated checkpoints kept (--ckpt_backend rotated).")
+    parser.add_argument("--steps_per_dispatch", default=1, type=int,
+                        help="K consecutive same-shape batches per dispatch: one CUDA "
+                        "graph of K steps on the card (K eager steps on the CPU).  The "
+                        "batcher forms runs of K; a resume needs the same K.  Not with "
+                        "--remat on the card.")
     parser.add_argument("--log_interval", default=50, type=int)
     parser.add_argument("--learning_rate", default=0.0002, type=float)
     parser.add_argument("--weight_decay", default=0.0, type=float)
@@ -148,6 +162,9 @@ def run_train(args, use_reg: bool = True):
         proj_state_dict=proj_sd,
         val_interval=args.val_interval or None,
         stop_info=stop_info,
+        steps_per_dispatch=args.steps_per_dispatch,
+        ckpt_backend=args.ckpt_backend,
+        ckpt_keep=args.ckpt_keep,
         device=device,
     )
 

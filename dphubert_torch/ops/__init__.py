@@ -36,7 +36,32 @@ from .wavlm_attention import (
     wavlm_route,
 )
 
+# every kernel's wrapper by the kernel's name; each wrapper's ``launches``
+# counts its launches (a CUDA graph's capture counts once, its replays not)
+LAUNCH_COUNTERS = {
+    "packed_attention_fwd": packed_attention,
+    "flash_attention_fwd": flash_attention,
+    "packed_attention_bwd_dq": packed_attention_bwd_dq,
+    "packed_attention_bwd_dkv": packed_attention_bwd_dkv,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "wavlm_attention_fwd": wavlm_attention_fwd,
+    "wavlm_attention_bwd_dkv": wavlm_attention_bwd_dkv,
+    "wavlm_attention_bwd_fused": wavlm_attention_bwd_fused,
+    "wavlm_attention_fwd_general": wavlm_attention_fwd_general,
+    "wavlm_attention_bwd_dkv_general": wavlm_attention_bwd_dkv_general,
+    "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
+    "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
+}
+
+
+def kernel_launches() -> dict:
+    """Each kernel's launch counter, by name (``LAUNCH_COUNTERS``)."""
+    return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+
+
 __all__ = [
+    "LAUNCH_COUNTERS",
     "FlashAttentionFn",
     "PackedAttentionFn",
     "WavLMAttentionFn",
@@ -48,6 +73,7 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_qkv",
     "flash_attention_reference",
+    "kernel_launches",
     "packed_attention",
     "packed_attention_bwd_dkv",
     "packed_attention_bwd_dq",

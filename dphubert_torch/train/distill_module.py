@@ -20,14 +20,21 @@ package's parameter tree does (ROADMAP queue 3).  ``remat`` checkpoints
 each of the student's encoder layers (``components.remat_layer``); the
 teacher runs under ``no_grad`` and keeps nothing to checkpoint.  The TPU
 package's ``scan_layers`` shrank its compiled program and has no
-counterpart in eager PyTorch; its ``steps_per_call`` is not ported yet
-(ROADMAP queue 1).
+counterpart in eager PyTorch.
+
+``make_train_step(..., steps_per_call=K)`` is the TPU package's K steps in
+one dispatch (its ``lax.scan``): on the CPU K eager steps, on the card one
+CUDA graph of K whole steps per (batch shape, lengths present,
+accumulation phase), replayed with each step's scalars (``step_scalars``)
+copied in beside the batch.  ``remat`` with K > 1 is refused on the card:
+``remat_layer`` sets the generator's state on the host, which a graph
+cannot replay (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -36,6 +43,7 @@ import torch
 from ..models.gates import has_gates, sample_gates
 from ..models.model import Wav2Vec2Model, resolve_device
 from ..models.size import model_size
+from ..ops import kernel_launches
 from ..params import flatten_params, unflatten_params
 from .losses import distill_loss_unstacked
 from .optim import DistillOptimizer, OptState, global_norm
@@ -161,6 +169,21 @@ def _target_sparsity(cfg: DistillConfig, step: int) -> float:
     return float(np.float32(cfg.target_sparsity) * frac)
 
 
+def step_scalars(cfg: DistillConfig, tx: DistillOptimizer, step: int, count: int) -> np.ndarray:
+    """The host scalars micro-step ``step`` reads, float32: the sparsity
+    target, then ``tx.scalars(count)`` (``optim.SCALARS``) for the update
+    count before the step."""
+    return np.concatenate([np.array([_target_sparsity(cfg, step)], np.float32),
+                           tx.scalars(count)])
+
+
+def _on_device(values: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: an asynchronous copy from pageable
+    memory (no wait for the card; the source is staged before the call
+    returns)."""
+    return torch.from_numpy(values).to(device, non_blocking=True)
+
+
 def _teacher_numel(teacher: Wav2Vec2Model) -> int:
     """Teacher size = raw parameter count, ``dummy_weight`` included
     (reference ``lightning.py:170``)."""
@@ -179,7 +202,7 @@ def _batch(batch, dtype: torch.dtype, device):
     return wave, lengths
 
 
-def _distill_forward(teacher, student, cfg, original, params, batch, step, generator,
+def _distill_forward(teacher, student, cfg, original, params, batch, target, generator,
                      training, gates):
     """Shared forward for train and eval: returns (loss, metrics)."""
     wave, lengths = _batch(batch, getattr(torch, cfg.compute_dtype),
@@ -199,7 +222,7 @@ def _distill_forward(teacher, student, cfg, original, params, batch, step, gener
     if cfg.use_reg:
         cur_size = model_size(params["student"], student.spec)
         s = 1.0 - cur_size / original
-        t = torch.tensor(_target_sparsity(cfg, step), device=loss_d.device)
+        t = target
         lam1, lam2 = params["lambdas"]["lambda1"], params["lambdas"]["lambda2"]
         loss_reg = lam1 * (s - t) + lam2 * (s - t).square()
         metrics.update(loss_reg=loss_reg, sparsity_expected=s, sparsity_target=t,
@@ -229,17 +252,23 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig):
     loss and the gradient's global norm ``grad_norm``.  ``gate_u`` injects
     the gates' uniform draws, a tree of the gates' layout (the tests hand
     the TPU package's draws in); otherwise they come from the state's
-    generator.  Gates stay differentiable in ``log_alpha``."""
+    generator.  Gates stay differentiable in ``log_alpha``.  ``target`` is
+    the sparsity target as a 0-dim tensor on the device (by default made
+    from ``state.step``)."""
     original = float(_teacher_numel(teacher))
 
-    def grad_fn(state: TrainState, batch, *, gate_u: Optional[dict] = None):
+    def grad_fn(state: TrainState, batch, *, gate_u: Optional[dict] = None,
+                target: Optional[torch.Tensor] = None):
         student = state.student
         params = _param_tree(state)
+        if target is None:
+            target = _on_device(np.array(_target_sparsity(cfg, state.step), np.float32),
+                                student.feature_extractor.dummy_weight.device)
         gates = None
         if has_gates(student.spec):
             gates = sample_gates(student.spec, params["student"], state.generator, u=gate_u)
         loss, metrics = _distill_forward(
-            teacher, student, cfg, original, params, batch, state.step, state.generator,
+            teacher, student, cfg, original, params, batch, target, state.generator,
             True, gates,
         )
         named = state.named_params()
@@ -253,20 +282,212 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig):
     return grad_fn
 
 
-def make_train_step(teacher: Wav2Vec2Model, cfg: DistillConfig, tx: DistillOptimizer):
+def make_train_step(teacher: Wav2Vec2Model, cfg: DistillConfig, tx: DistillOptimizer, *,
+                    steps_per_call: int = 1):
     """The train step ``step(state, batch, *, gate_u=None) -> (state,
     metrics)``: ``make_grad_fn``'s gradients, then one micro-step of ``tx``
     (an update every ``accum_grad`` micro-steps), in place.  Metrics hold
-    the λs from before the update."""
+    the λs from before the update.  Each step reads its scalars
+    (``step_scalars``) from a tensor on the device.
+
+    ``steps_per_call=K > 1`` returns ``step(state, batch) -> (state,
+    metrics)`` for K micro-steps: ``batch`` is ``(waveforms (K, B, T),
+    lengths (K, B) or None)`` and every metric comes back stacked ``(K,)``
+    in float32, as the TPU package's multi-step.  On the CPU it runs the K
+    steps eagerly; on the card see ``GraphedSteps``."""
     grad_fn = make_grad_fn(teacher, cfg)
 
-    def step(state: TrainState, batch, *, gate_u: Optional[dict] = None):
-        metrics, grads = grad_fn(state, batch, gate_u=gate_u)
-        tx.step(grads, state.opt_state, state.named_params())
+    def one(state: TrainState, batch, scalars: torch.Tensor, gate_u=None):
+        metrics, grads = grad_fn(state, batch, gate_u=gate_u, target=scalars[0])
+        tx.step(grads, state.opt_state, state.named_params(), scalars[1:])
         state.step += 1
-        return state, metrics
+        return metrics
 
-    return step
+    if steps_per_call == 1:
+        def step(state: TrainState, batch, *, gate_u: Optional[dict] = None):
+            scalars = _on_device(step_scalars(cfg, tx, state.step, state.opt_state.count),
+                                 state.student.feature_extractor.dummy_weight.device)
+            return state, one(state, batch, scalars, gate_u)
+
+        return step
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    return GraphedSteps(one, cfg, tx, steps_per_call)
+
+
+def refuse_remat_graphs(cfg: DistillConfig, steps_per_call: int, device) -> None:
+    """Raise for ``remat`` with K > 1 on the card: ``remat_layer`` sets the
+    generator's state on the host, which a CUDA graph cannot replay."""
+    if steps_per_call > 1 and cfg.remat and torch.device(device).type == "cuda":
+        raise ValueError(
+            "remat with steps_per_dispatch > 1 is not supported on the card: remat_layer "
+            "sets the generator's state on the host, which a CUDA graph cannot replay; "
+            "pass --steps_per_dispatch 1 with --remat")
+
+
+def _plan(cfg: DistillConfig, tx: DistillOptimizer, state: TrainState, k: int) -> np.ndarray:
+    """(k, n) float32: the scalars of the next k micro-steps, the host
+    counters moved on a copy as the steps will move them."""
+    opt = replace(state.opt_state)
+    rows = []
+    for j in range(k):
+        rows.append(step_scalars(cfg, tx, state.step + j, opt.count))
+        tx.tick(opt)
+    return np.stack(rows)
+
+
+def _add_counts(a: Dict[str, int], b: Dict[str, int]) -> Dict[str, int]:
+    return {n: a.get(n, 0) + b.get(n, 0) for n in {**a, **b}}
+
+
+@dataclass
+class _Graph:
+    """One captured K-step group and its buffers, allocated outside the
+    graphs' pool: the batch and lengths it reads, its scalars, and its
+    stacked metrics (one row per metric, one column per step)."""
+
+    graph: Optional["torch.cuda.CUDAGraph"]
+    wave: torch.Tensor
+    lengths: Optional[torch.Tensor]
+    scalars: torch.Tensor
+    out: Optional[torch.Tensor] = None
+    launches: Optional[Dict[str, int]] = None  # kernel launches a replay runs
+
+
+class GraphedSteps:
+    """K micro-steps per call (``make_train_step(..., steps_per_call=K)``).
+
+    On the CPU, K eager steps.  On the card, one ``torch.cuda.CUDAGraph`` of
+    K whole steps (teacher forward, student forward, ``autograd.grad``, the
+    optimizer) per key (batch shape and dtype, lengths present, the
+    accumulation phase at the group's start, on which the optimizer's host
+    branch depends):
+
+    * the first group of a key runs eagerly on the capture stream (it
+      trains, and it builds the kernels and sets their attributes), then
+      the group is captured; capture moves no state: ``state.step``, the
+      update count, the phase and the generator are checked unchanged;
+    * the state's generator is registered with every graph, so each replay
+      draws fresh gates, dropout masks and kernel seeds from the offset the
+      generator holds at that replay;
+    * every graph allocates from one shared pool: the groups replay one at
+      a time on one stream, and each graph's last operations copy its
+      metrics into its own buffer outside the pool;
+    * a replay copies the batch (already on the card) and the K steps'
+      scalars into the graph's buffers on the compute stream, so the next
+      batch's host-to-card copy never writes a buffer a replay reads.
+
+    A failed capture or replay raises: there is no eager fallback.  The
+    kernels' launch counters are Python attributes, so they count the
+    capture, which runs nothing, and not the replays.  The class keeps the
+    tally that sets this right, over every instance: ``captured`` (the
+    counts taken at captures) and ``replayed`` (each replay adds its
+    graph's), by kernel name, and ``replays``; the counters minus
+    ``captured`` plus ``replayed`` are the launches that ran
+    (``reset_tally`` zeroes it).  ``before_capture``, if set, is called
+    before each capture: a capture forbids other threads' unsafe CUDA calls
+    (the background saver's pinned copy), so the trainer waits there for a
+    save in flight."""
+
+    captured: Dict[str, int] = {}
+    replayed: Dict[str, int] = {}
+    replays = 0
+
+    @classmethod
+    def reset_tally(cls) -> None:
+        cls.captured, cls.replayed, cls.replays = {}, {}, 0
+
+    def __init__(self, one, cfg: DistillConfig, tx: DistillOptimizer, k: int):
+        self.one, self.cfg, self.tx, self.k = one, cfg, tx, k
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.names: Optional[Tuple[str, ...]] = None
+        self.pool = None
+        self.stream = None
+        self.before_capture = None
+
+    def _run(self, state: TrainState, g: _Graph) -> None:
+        """The K steps on ``g``'s buffers, metrics into ``g.out``."""
+        for j in range(self.k):
+            lengths = None if g.lengths is None else g.lengths[j]
+            metrics = self.one(state, (g.wave[j], lengths), g.scalars[j])
+            if self.names is None:
+                self.names = tuple(metrics)
+            if g.out is None:
+                g.out = torch.empty((len(self.names), self.k), dtype=torch.float32,
+                                    device=g.wave.device)
+            g.out[:, j] = torch.stack([metrics[n].float() for n in self.names])
+
+    def _metrics(self, out: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {n: out[i] for i, n in enumerate(self.names)}
+
+    def __call__(self, state: TrainState, batch):
+        waves, lengths = batch
+        device = state.student.feature_extractor.dummy_weight.device
+        waves = torch.as_tensor(waves).to(device)
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths).to(device=device, dtype=torch.int32)
+        if waves.shape[0] != self.k:
+            raise ValueError(f"a group of {self.k} steps needs a stack of {self.k} batches, "
+                             f"got {tuple(waves.shape)}")
+        scalars = _on_device(_plan(self.cfg, self.tx, state, self.k), device)
+        if device.type != "cuda":
+            g = _Graph(None, waves, lengths, scalars)
+            self._run(state, g)
+            return state, self._metrics(g.out)
+        refuse_remat_graphs(self.cfg, self.k, device)
+        key = (tuple(waves.shape), waves.dtype, lengths is None, state.opt_state.mini_step)
+        g = self.graphs.get(key)
+        if g is None:
+            return state, self._warm_and_capture(state, key, waves, lengths, scalars)
+        g.wave.copy_(waves)
+        if lengths is not None:
+            g.lengths.copy_(lengths)
+        g.scalars.copy_(scalars)
+        g.graph.replay()
+        GraphedSteps.replays += 1
+        GraphedSteps.replayed = _add_counts(GraphedSteps.replayed, g.launches)
+        state.step += self.k
+        for _ in range(self.k):
+            self.tx.tick(state.opt_state)
+        return state, self._metrics(g.out.clone())
+
+    def _warm_and_capture(self, state: TrainState, key, waves, lengths, scalars):
+        """The key's first group: eager on the capture stream (this call's
+        training), then its capture; returns the eager group's metrics."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(waves.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        g = _Graph(None, waves.clone(), None if lengths is None else lengths.clone(),
+                   scalars.clone())
+        compute = torch.cuda.current_stream(waves.device)
+        self.stream.wait_stream(compute)
+        with torch.cuda.stream(self.stream):
+            self._run(state, g)
+        compute.wait_stream(self.stream)
+        metrics = self._metrics(g.out.clone())
+
+        if self.before_capture is not None:
+            self.before_capture()
+        opt = state.opt_state
+        before = (state.step, opt.count, opt.mini_step, state.generator.get_state())
+        # the eager group moved the phase on by K mod accum_grad: the graph
+        # starts in the phase its key's groups start in
+        opt.mini_step = key[-1]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        counted = kernel_launches()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                self._run(state, g)
+        finally:
+            state.step, opt.count, opt.mini_step = before[:3]
+        if not torch.equal(state.generator.get_state(), before[3]):
+            raise RuntimeError("capturing the training steps moved the generator")
+        g.launches = {n: v - counted[n] for n, v in kernel_launches().items() if v != counted[n]}
+        GraphedSteps.captured = _add_counts(GraphedSteps.captured, g.launches)
+        g.graph = graph
+        self.graphs[key] = g
+        return metrics
 
 
 def make_eval_step(teacher: Wav2Vec2Model, cfg: DistillConfig):
@@ -276,8 +497,10 @@ def make_eval_step(teacher: Wav2Vec2Model, cfg: DistillConfig):
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, gates):
+        target = _on_device(np.array(_target_sparsity(cfg, state.step), np.float32),
+                            state.student.feature_extractor.dummy_weight.device)
         _, metrics = _distill_forward(
-            teacher, state.student, cfg, original, _param_tree(state), batch, state.step,
+            teacher, state.student, cfg, original, _param_tree(state), batch, target,
             None, False, gates,
         )
         return metrics

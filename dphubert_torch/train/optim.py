@@ -28,6 +28,14 @@ One update, as optax's chain in the TPU package:
 averaged (the running-mean form) and one update is applied every
 ``accum_grad`` calls; the schedules run on the update count.  Updates are
 in place; the moments are fp32 tensors beside the parameters.
+
+The per-update scalars (the bias corrections, the schedule factor and each
+group's step size, ``scalars``) are computed on the host in float32 as
+before and read by the update from a small tensor on the parameters'
+device, never as Python numbers baked into the launch: a CUDA graph of
+several steps (``distill_module.make_train_step``) then replays with each
+step's own values, and an eager step does the same arithmetic.  Only the
+update count and the accumulation phase stay host integers (``tick``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ import torch
 from .schedules import linear_decay_factor
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+GROUPS = ("main", "log_alpha", "lambda")
+# the layout of ``DistillOptimizer.scalars``: then one step size per group
+SCALARS = ("bc1", "bc2", "lr_factor") + tuple(f"step_size_{g}" for g in GROUPS)
 
 
 def param_label(name: str) -> str:
@@ -106,28 +117,60 @@ class DistillOptimizer:
                  if self.accum_grad > 1 else None),
         )
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The update's scalars at update count ``count`` (0 at the first
+        update), float32 in the order of ``SCALARS``: the bias corrections
+        1 - b ** (count + 1) (as optax computes decay ** count), the
+        schedule factor and sign x base_lr x factor per group (0 for a
+        group this optimizer does not have)."""
+        count_inc = np.float32(count + 1)
+        bc1 = float(1 - np.float32(B1) ** count_inc)
+        bc2 = float(1 - np.float32(B2) ** count_inc)
+        factor = linear_decay_factor(count, self.warmup_updates, self.max_updates)
+        sizes = [float(np.float32(self.sign[g] * self.base_lr[g] * factor))
+                 if g in self.base_lr else 0.0 for g in GROUPS]
+        return np.array([bc1, bc2, factor, *sizes], np.float32)
+
+    def tick(self, state: OptState) -> bool:
+        """The host half of one micro-step: the accumulation phase and the
+        update count move on; True when this micro-step applies an
+        update."""
+        if self.accum_grad > 1:
+            state.mini_step += 1
+            if state.mini_step < self.accum_grad:
+                return False
+            state.mini_step = 0
+        state.count += 1
+        return True
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor], state: OptState,
-             params: Dict[str, torch.Tensor]) -> bool:
-        """One micro-step; returns True when it applied an update."""
+             params: Dict[str, torch.Tensor],
+             scalars: Optional[torch.Tensor] = None) -> bool:
+        """One micro-step; returns True when it applied an update.
+        ``scalars`` is ``self.scalars(state.count)`` as a float32 tensor on
+        the parameters' device (made here when not given)."""
+        if scalars is None:
+            device = next(iter(params.values())).device
+            scalars = torch.from_numpy(self.scalars(state.count)).to(device, non_blocking=True)
+        phase = state.mini_step
+        applies = self.tick(state)
         if self.accum_grad > 1:
             names = list(grads)
             acc = [state.acc[n] for n in names]
             # acc + (g - acc) / (n + 1): optax MultiSteps' running mean
             delta = torch._foreach_sub([grads[n] for n in names], acc)
-            torch._foreach_div_(delta, float(state.mini_step + 1))
+            torch._foreach_div_(delta, float(phase + 1))
             torch._foreach_add_(acc, delta)
-            state.mini_step += 1
-            if state.mini_step < self.accum_grad:
+            if not applies:
                 return False
             grads = {n: a.clone() for n, a in zip(names, acc)}
             for a in acc:
                 a.zero_()
-            state.mini_step = 0
-        self._update(grads, state, params)
+        self._update(grads, state, params, scalars)
         return True
 
-    def _update(self, grads, state: OptState, params) -> None:
+    def _update(self, grads, state: OptState, params, scalars: torch.Tensor) -> None:
         names = list(grads)
         g_all = [grads[n].float() for n in names]
         if self.clip_norm and self.clip_norm > 0:
@@ -135,11 +178,7 @@ class DistillOptimizer:
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
             torch._foreach_mul_(g_all, scale)
-        count_inc = state.count + 1
-        # float32 bias corrections, as optax computes decay ** count
-        bc1 = float(1 - np.float32(B1) ** np.float32(count_inc))
-        bc2 = float(1 - np.float32(B2) ** np.float32(count_inc))
-        factor = linear_decay_factor(state.count, self.warmup_updates, self.max_updates)
+        bc1, bc2 = scalars[0], scalars[1]
         by_group: Dict[str, List[int]] = {}
         for i, n in enumerate(names):
             by_group.setdefault(param_label(n), []).append(i)
@@ -159,6 +198,5 @@ class DistillOptimizer:
             torch._foreach_div_(upd, denom)
             if self.weight_decay[group]:
                 torch._foreach_add_(upd, p, alpha=self.weight_decay[group])
-            step_size = float(np.float32(self.sign[group] * self.base_lr[group] * factor))
-            torch._foreach_add_(p, upd, alpha=step_size)
-        state.count = count_inc
+            torch._foreach_mul_(upd, scalars[SCALARS.index(f"step_size_{group}")])
+            torch._foreach_add_(p, upd)

@@ -5,12 +5,23 @@ validation and the stage export (the TPU package's ``train/trainer.py``).
 final distill (``use_reg=False``, projections warm-started from stage 1) to
 ``cfg.max_updates`` optimizer updates:
 
-* the loader's batches go to the card one step ahead, from pinned host
-  memory with a non-blocking copy, so the copy of batch N+1 overlaps step N;
-* a checkpoint (``train/checkpointing.py``) is written every
-  ``ckpt_interval`` micro-steps, at the end, and when the run stops early;
-  ``resume`` continues from one at the exact batch, gate draw and dropout
-  mask;
+* the loader's batches (and their lengths) go to the card one dispatch
+  ahead, from pinned host memory with a non-blocking copy;
+* ``steps_per_dispatch=K`` groups K consecutive batches of one shape
+  (``_group_iter``; the batcher's ``run_length=K`` forms such runs) into
+  one call of ``make_train_step(..., steps_per_call=K)``, a CUDA graph of K
+  steps on the card; shape changes, epoch tails and the last steps before
+  ``max_updates`` run as single steps, and the run ends exactly at
+  ``max_updates``;
+* a checkpoint (``train/checkpointing.py``) is written when the micro-step
+  count crosses a multiple of ``ckpt_interval``, at the end, and when the
+  run stops early: ``ckpts/last.pt`` (``ckpt_backend="last"``) or the
+  newest ``ckpt_keep`` of ``ckpts/rotated/step_{n}.pt`` ("rotated");
+  by default through the background saver, which copies the state on
+  the card and writes it from a thread (``DPHUBERT_SYNC_CKPT=1``, or a
+  state too large for the card's spare memory, writes synchronously);
+  ``resume`` (a file, or the rotated directory: its newest) continues at
+  the exact batch, gate draw and dropout mask;
 * validation runs at each epoch end, every ``val_interval`` micro-steps,
   and once on the final state of a completed run;
 * a SIGTERM, ``stop_at_step``, the RSS watchdog (the process's resident
@@ -21,37 +32,46 @@ final distill (``use_reg=False``, projections warm-started from stage 1) to
   CLIs choose their exit codes.
 
 Not ported yet (ROADMAP queue 1): the mesh and its tensor-parallel / FSDP
-layouts, ``steps_per_dispatch`` (a CUDA graph of K steps on the card),
-orbax and the background saver.
+layouts (one card here), LayerDrop, and the profiling hooks.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import pathlib
 import signal
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..interop.torch_ckpt import save_checkpoint
 from ..models.gates import compile_gates, has_gates
 from ..models.model import Wav2Vec2Model, resolve_device
 from ..params import flatten_params, unflatten_params
-from .checkpointing import load_train_state, save_train_state
+from .checkpointing import (
+    BackgroundSaver,
+    RotatingCheckpointer,
+    background_ckpt_fits,
+    load_train_state,
+    save_train_state,
+)
 from .distill_module import (
     DistillConfig,
     TrainState,
     init_train_state,
     make_eval_step,
     make_train_step,
+    refuse_remat_graphs,
 )
 from .projections import projections_from_state_dict, projections_to_state_dict
 
 SAMPLE_RATE = 16000
 RSS_CHECK_INTERVAL = 100  # steps between two reads of /proc/self/statm
+CKPT_BACKENDS = ("last", "rotated")
 
 
 def _memory_budget_bytes() -> int:
@@ -149,6 +169,9 @@ def train(
     stop_at_step: Optional[int] = None,
     val_interval: Optional[int] = None,
     stop_info: Optional[dict] = None,
+    steps_per_dispatch: int = 1,
+    ckpt_backend: str = "last",
+    ckpt_keep: int = 3,
     device="cuda",
 ) -> TrainState:
     """Train a copy of ``student`` against the frozen ``teacher`` (a module
@@ -157,11 +180,15 @@ def train(
     ``loader`` and ``valid_loader`` have ``epoch(e, skip=0)`` yielding
     ``(waveforms, lengths)`` numpy batches (``DistillDataLoader``).
     ``proj_state_dict`` warm-starts the projections (reference
-    final_distill.py:93)."""
+    final_distill.py:93).  ``stop_at_step`` stops at the first dispatch
+    boundary at or past it."""
     device = resolve_device(device)
+    if ckpt_backend not in CKPT_BACKENDS:
+        raise ValueError(f"ckpt_backend must be one of {CKPT_BACKENDS}, got {ckpt_backend!r}")
+    K = max(int(steps_per_dispatch), 1)
+    refuse_remat_graphs(cfg, K, device)
     exp_dir = pathlib.Path(exp_dir)
     (exp_dir / "ckpts").mkdir(parents=True, exist_ok=True)
-    ckpt_path = exp_dir / "ckpts" / "last.pt"
     accum = max(cfg.accum_grad, 1)
 
     state, tx = init_train_state(student=student, cfg=cfg,
@@ -174,9 +201,13 @@ def train(
             p.requires_grad_(True)
         state.projs = projs
 
+    rotated = None
+    if ckpt_backend == "rotated":
+        rotated = RotatingCheckpointer(exp_dir / "ckpts" / "rotated", keep=ckpt_keep)
+
     resume_pos = (0, 0)  # (epoch, batches already consumed in that epoch)
     if resume:
-        resume_pos = load_train_state(resume, state, accum_grad=accum)
+        resume_pos = load_train_state(resume, state, accum_grad=accum, steps_per_dispatch=K)
         print(f"[train] resumed from {resume} at step {state.step} "
               f"(epoch {resume_pos[0]}, batch {resume_pos[1]})", flush=True)
 
@@ -220,6 +251,7 @@ def train(
 
     logger = MetricLogger(exp_dir, log_interval)
     step_fn = make_train_step(teacher, cfg, tx)
+    multi_fn = make_train_step(teacher, cfg, tx, steps_per_call=K) if K > 1 else None
     eval_fn = make_eval_step(teacher, cfg) if valid_loader is not None else None
 
     max_micro_steps = cfg.max_updates * accum
@@ -228,31 +260,101 @@ def train(
     batch_in_epoch = skip
     done = False
     last_val_step = -1
+    # a rotated step is written once: seeded from the directory, so a
+    # resumed run's first save cannot land on a step already on disk
     last_saved = {"step": -1}
+    if rotated is not None and rotated.latest_step() is not None:
+        last_saved["step"] = rotated.latest_step()
     why = None
+
+    def _write_ckpt(snap, *, step, epoch, batch_in_epoch):
+        """The backend's write of a ``TrainState`` (synchronous path) or a
+        host snapshot (background path)."""
+        kw = dict(epoch=epoch, batch_in_epoch=batch_in_epoch, accum_grad=accum,
+                  steps_per_dispatch=K)
+        if rotated is not None:
+            rotated.save(step, snap, **kw)
+        else:
+            save_train_state(exp_dir / "ckpts" / "last.pt", snap, **kw)
+
+    saver = None
+    # the snapshot is one more copy of the state on the card while training
+    # goes on: a state too large for that (or DPHUBERT_SYNC_CKPT=1) stays
+    # synchronous
+    if background_ckpt_fits(state):
+        saver = BackgroundSaver(_write_ckpt)
+        saver.reserve(state)
+        if multi_fn is not None:
+            multi_fn.before_capture = saver.wait
+    else:
+        logging.getLogger("dphubert_torch").info(
+            "background checkpoints off (DPHUBERT_SYNC_CKPT, DPHUBERT_BG_CKPT, or a state "
+            "too large for the card's spare memory): saving synchronously")
 
     def _checkpoint():
         if step == last_saved["step"]:
             return
         last_saved["step"] = step
-        save_train_state(ckpt_path, state, epoch=epoch, batch_in_epoch=batch_in_epoch,
-                         accum_grad=accum)
+        kw = dict(step=step, epoch=epoch, batch_in_epoch=batch_in_epoch)
+        if saver is not None:
+            saver.submit(state, **kw)
+        else:
+            _write_ckpt(state, **kw)
 
     def _validate():
         _run_validation(eval_fn, state, valid_loader, step)
 
+    def _log_dispatch(prev_step: int, n: int, metrics: dict, audio_sec: float):
+        """Log each micro-step of an n-step dispatch; stacked metrics are
+        read from the card in one transfer, and only when a logged step
+        falls inside the dispatch."""
+        if n == 1:
+            metrics["updates"] = (prev_step + 1) // accum
+            logger.log(prev_step + 1, metrics, audio_seconds=audio_sec)
+            return
+        need = any((prev_step + 1 + j) % logger.interval == 0 for j in range(n))
+        rows = None
+        if need:
+            names = list(metrics)
+            rows = dict(zip(names, torch.stack([metrics[k] for k in names]).cpu().numpy()))
+        for j in range(n):
+            ms = prev_step + 1 + j
+            row = {}
+            if rows is not None:
+                row = {k: v[j] for k, v in rows.items()}
+                row["updates"] = ms // accum
+            logger.log(ms, row, audio_seconds=audio_sec / n)
+
     try:
         while not done:
             epoch_yielded = 0
-            for wave, lengths, audio_sec in _device_prefetch(
-                    _epoch_iter(loader, epoch, skip), device):
-                state, metrics = step_fn(state, (wave, lengths))
-                epoch_yielded += 1
+            groups = _group_iter(_epoch_iter(loader, epoch, skip), K,
+                                 lambda: max_micro_steps - step)
+            for wave, lengths, audio_sec in _device_prefetch(groups, device):
+                n = wave.shape[0] if wave.dim() == 3 else 1
+                if n > 1 and step + n > max_micro_steps:
+                    # the grouper's remaining() guard ran one dispatch early
+                    # (the prefetch runs ahead): take only the steps that
+                    # fit, one at a time, so the run ends exactly at
+                    # max_updates and batch_in_epoch counts what was taken
+                    for j in range(max_micro_steps - step):
+                        lj = None if lengths is None else lengths[j]
+                        state, metrics = step_fn(state, (wave[j], lj))
+                        epoch_yielded += 1
+                        step += 1
+                        batch_in_epoch += 1
+                        _log_dispatch(step - 1, 1, metrics, audio_sec / n)
+                    done = True
+                    break
+                if n > 1:
+                    state, metrics = multi_fn(state, (wave, lengths))
+                else:
+                    state, metrics = step_fn(state, (wave, lengths))
+                epoch_yielded += n
                 prev_step = step
-                step += 1
-                batch_in_epoch += 1
-                metrics["updates"] = step // accum
-                logger.log(step, metrics, audio_seconds=audio_sec)
+                step += n
+                batch_in_epoch += n
+                _log_dispatch(prev_step, n, metrics, audio_sec)
                 if step // ckpt_interval > prev_step // ckpt_interval:
                     _checkpoint()
                 # at train960 scale one epoch is tens of thousands of steps,
@@ -261,6 +363,7 @@ def train(
                         and step // val_interval > prev_step // val_interval):
                     _validate()
                     last_val_step = step
+                # with K > 1 a stop lands on the dispatch boundary
                 if stop_requested["flag"]:
                     why = "sigterm"
                 elif stop_at_step is not None and prev_step < stop_at_step <= step:
@@ -299,7 +402,19 @@ def train(
         if eval_fn is not None and why is None and step > 0 and last_val_step != step:
             _validate()
         _checkpoint()
+        if saver is not None:
+            err = saver.close()  # wait for the write in flight
+            saver = None
+            if err is not None:
+                # the final checkpoint has no successor to supersede it:
+                # rewrite it from the live state
+                logging.getLogger("dphubert_torch").warning(
+                    "final background checkpoint save failed (%s: %s); rewriting "
+                    "synchronously", type(err).__name__, err)
+                _write_ckpt(state, step=step, epoch=epoch, batch_in_epoch=batch_in_epoch)
     finally:
+        if saver is not None:  # an exception ended the run
+            saver.close()
         logger.close()
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -308,18 +423,56 @@ def train(
     return state
 
 
+def _group_iter(it, k: int, remaining):
+    """Stack runs of ``k`` consecutive same-shape batches into one
+    (k, B, T) feed for a multi-step dispatch; shape changes, epoch tails,
+    and the last < k steps before ``remaining()`` runs out flush as
+    single batches.  Pair the batcher's ``run_length=k`` with this so
+    runs actually form (a plain shuffled epoch interleaves shapes).  A
+    copy of the TPU package's."""
+    if k <= 1:
+        yield from it
+        return
+    pend = []
+
+    def _flush_single(p):
+        for w, l in p:
+            yield w, l
+
+    for wave, lengths in it:
+        if pend and (pend[0][0].shape != wave.shape
+                     or (pend[0][1] is None) != (lengths is None)):
+            yield from _flush_single(pend)
+            pend = []
+        pend.append((wave, lengths))
+        if len(pend) == k:
+            if remaining() < k:  # don't overshoot max_updates
+                yield from _flush_single(pend)
+            else:
+                yield (
+                    np.stack([w for w, _ in pend]),
+                    (np.stack([l for _, l in pend])
+                     if pend[0][1] is not None else None),
+                )
+            pend = []
+    yield from _flush_single(pend)
+
+
 def _device_prefetch(it, device: torch.device):
-    """Run one batch ahead: the host-to-card copy of batch N+1 (from pinned
-    memory, non-blocking) is issued before step N runs, so it overlaps
-    step N's kernels.  Yields (waveforms on the device, lengths, audio
-    seconds)."""
+    """Run one dispatch ahead: the host-to-card copies of dispatch N+1's
+    batch and lengths (from pinned memory, non-blocking) are issued before
+    dispatch N runs.  Yields (waveforms on the device, lengths on the
+    device or None, audio seconds)."""
     prev = None
     for wave, lengths in it:
         audio_sec = wave.size / SAMPLE_RATE
         t = torch.from_numpy(wave)
+        lens = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int32))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
-        cur = (t, lengths, audio_sec)
+            if lens is not None:
+                lens = lens.pin_memory().to(device, non_blocking=True)
+        cur = (t, lens, audio_sec)
         if prev is not None:
             yield prev
         prev = cur

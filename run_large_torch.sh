@@ -8,7 +8,11 @@
 # B = 12 x 15 s in bf16 fits without per-layer activation checkpointing,
 # which would only add one student forward a step (PERF.md, "Large step").
 # Set REMAT=1 to trade that time for activation memory (a larger
-# SECONDS_PER_BATCH, or a smaller card).
+# SECONDS_PER_BATCH, or a smaller card); it runs one step a dispatch, since
+# a CUDA graph cannot replay remat's generator calls (run_torch.sh).
+# Without remat the default is run_torch.sh's STEPS_PER_DISPATCH=4: all 12
+# batch shapes at 180 s a batch captured as 4-step graphs fit on an H100
+# 80GB (chip_smoke.py phase "graph_keys", PERF.md section 5).
 set -euo pipefail
 
 export TEACHER_CKPT=${TEACHER_CKPT:-pretrained/wav2vec2-large.hf.pth}

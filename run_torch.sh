@@ -8,12 +8,13 @@
 # (per-layer activation checkpointing of the student: less activation
 # memory for one more student forward a step).
 #
-# Not passed, because dphubert_torch has no counterpart yet: --ckpt_backend
-# (orbax rotation and the background saver: only the last-only
-# ckpts/last.pt), --rng_impl (the TPU's generator choice; the port draws
-# from torch generators), --steps_per_dispatch (K steps as one CUDA graph).
-# --scan_layers shrank the TPU package's compiled Large program and has no
-# counterpart in eager PyTorch.
+# run.sh's runtime knobs: STEPS_PER_DISPATCH (default 4: K batches a
+# dispatch, one CUDA graph of K steps on the card) and CKPT_BACKEND
+# (default rotated: ckpts/rotated/step_<n>.pt, the newest three kept;
+# last: ckpts/last.pt), both written by a background thread.
+# Not passed: --rng_impl (the TPU's generator choice; the port draws from
+# torch generators) and --scan_layers (it shrank the TPU package's compiled
+# Large program and has no counterpart in eager PyTorch).
 set -euo pipefail
 
 # ---- hyperparameters (the recipe record, reference run.sh:16-42) ----
@@ -38,6 +39,15 @@ device=${DEVICE:-cuda}
 
 extra_flags=()
 [ "${REMAT:-0}" = 1 ] && extra_flags+=(--remat)
+ckpt_backend=${CKPT_BACKEND:-rotated}         # rotated: keep-3 step files; last: last.pt
+# a CUDA graph cannot replay remat's host-side generator calls, so the
+# card refuses --remat with K > 1: REMAT=1 defaults to one step a dispatch
+if [ "${REMAT:-0}" = 1 ]; then
+  steps_per_dispatch=${STEPS_PER_DISPATCH:-1}
+else
+  steps_per_dispatch=${STEPS_PER_DISPATCH:-4}
+fi
+runtime_flags=(--steps_per_dispatch "$steps_per_dispatch" --ckpt_backend "$ckpt_backend")
 
 pruning_units="conv,head,interm"
 reg_learning_rate=0.02
@@ -54,8 +64,14 @@ mkdir -p "$root_dir"
 # A preempted stage (SIGTERM, or the trainer's RSS watchdog converting an
 # impending OOM kill into a clean checkpoint) exits 75: resume it from its
 # own checkpoint until it completes; any other failure aborts.
+# $resume_from must match the stage's --ckpt_backend: last.pt for last, the
+# ckpts/rotated directory for rotated (the trainer takes its newest step).
 resume_path() {  # $1 = stage dir
-  echo "$1/ckpts/last.pt"
+  if [ "$ckpt_backend" = rotated ]; then
+    echo "$1/ckpts/rotated"
+  else
+    echo "$1/ckpts/last.pt"
+  fi
 }
 
 retry_resumable() {
@@ -90,7 +106,7 @@ retry_resumable python -m dphubert_torch.cli.distill \
   --sparsity_warmup_updates "$sparsity_warmup_updates" \
   --num_shapes "$num_shapes" \
   --log_interval "$log_interval" --ckpt_interval "$ckpt_interval" \
-  --precision bf16 --device "$device" \
+  --precision bf16 --device "$device" "${runtime_flags[@]}" \
   ${extra_flags[@]+"${extra_flags[@]}"} 2>&1 | tee -a "$root_dir/stage1.log" || exit 1
 
 echo "[run_torch.sh] $(date -Is) stage 1.5 (prune) start"
@@ -116,7 +132,7 @@ retry_resumable python -m dphubert_torch.cli.final_distill \
   --max_updates "$final_max_updates" --clip_norm "$clip_norm" \
   --num_shapes "$num_shapes" \
   --log_interval "$log_interval" --ckpt_interval "$ckpt_interval" \
-  --precision bf16 --device "$device" \
+  --precision bf16 --device "$device" "${runtime_flags[@]}" \
   ${extra_flags[@]+"${extra_flags[@]}"} 2>&1 | tee -a "$root_dir/stage2.log" || exit 1
 
 echo "[run_torch.sh] $(date -Is) stage 3 (save_final_ckpt) start"

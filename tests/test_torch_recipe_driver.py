@@ -34,22 +34,29 @@ from tests.test_torch_pipeline import (  # noqa: F401 (fixtures)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def test_run_torch_sh_reaches_a_served_checkpoint(corpus, teacher_ckpt, tmp_path):
-    """The whole recipe script at a tiny size: stage 1 (3 updates), prune,
-    final distill (2 updates), save_final_ckpt and load_dpmodel, exit 0;
-    the exported checkpoint serves finite features and is smaller than the
-    teacher."""
-    _, tsv = corpus
-    exp = tmp_path / "exp"
+def _run_torch_sh(tsv, teacher_ckpt, exp, cwd, **env_over):
     env = dict(os.environ, TSV_DIR=str(tsv), TRAIN_SUBSET="train100",
                TEACHER_CKPT=str(teacher_ckpt), DISTILL_LAYERS="0.1,3",
                MAX_UPDATES="3", WARMUP_UPDATES="2", SPARSITY_WARMUP_UPDATES="2",
                FINAL_MAX_UPDATES="2", FINAL_WARMUP_UPDATES="1", SECONDS_PER_BATCH="16",
                NUM_SHAPES="2", LOG_INTERVAL="1", DEVICE="cpu", EXP_DIR=str(exp),
-               OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
-    proc = subprocess.run(["bash", str(REPO / "run_torch.sh")], cwd=tmp_path, env=env,
+               OMP_NUM_THREADS="1", PYTHONPATH=str(REPO), **env_over)
+    proc = subprocess.run(["bash", str(REPO / "run_torch.sh")], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc
+
+
+def test_run_torch_sh_reaches_a_served_checkpoint(corpus, teacher_ckpt, tmp_path):
+    """The whole recipe script at a tiny size, with its defaults
+    (``--steps_per_dispatch 4 --ckpt_backend rotated``): stage 1 (3
+    updates), prune, final distill (2 updates), save_final_ckpt and
+    load_dpmodel, exit 0; the exported checkpoint serves finite features and
+    is smaller than the teacher; each stage's checkpoints are rotated step
+    files recording K = 4."""
+    _, tsv = corpus
+    exp = tmp_path / "exp"
+    proc = _run_torch_sh(tsv, teacher_ckpt, exp, tmp_path)
     assert f"Done: {exp}/dphubert.pth" in proc.stdout
     assert "extract_features: 4 layers" in proc.stdout  # load_dpmodel
     final = load_checkpoint(exp / "dphubert.pth")
@@ -59,8 +66,28 @@ def test_run_torch_sh_reaches_a_served_checkpoint(corpus, teacher_ckpt, tmp_path
     assert all(bool(torch.isfinite(o).all()) for o in outs)
     n_teacher = sum(v.size for v in load_checkpoint(teacher_ckpt)["state_dict"].values())
     assert sum(v.size for v in final["state_dict"].values()) < n_teacher
-    assert (exp / "stage1" / "ckpts" / "last.pt").exists()
-    assert (exp / "stage2" / "ckpts" / "last.pt").exists()
+    for stage, steps in (("stage1", 3), ("stage2", 2)):
+        rotated = sorted(p.name for p in (exp / stage / "ckpts" / "rotated").glob("step_*.pt"))
+        assert rotated == [f"step_{steps}.pt"], (stage, rotated)
+        meta = torch.load(exp / stage / "ckpts" / "rotated" / rotated[0],
+                          weights_only=True)["meta"]
+        assert meta["steps_per_dispatch"] == 4
+        assert not (exp / stage / "ckpts" / "last.pt").exists()
+
+
+def test_run_torch_sh_with_the_last_backend(corpus, teacher_ckpt, tmp_path):
+    """``CKPT_BACKEND=last STEPS_PER_DISPATCH=1``: the script passes both,
+    every stage writes ``ckpts/last.pt`` (K = 1 recorded) and no rotated
+    directory, and the recipe ends in a checkpoint that serves."""
+    _, tsv = corpus
+    exp = tmp_path / "exp"
+    proc = _run_torch_sh(tsv, teacher_ckpt, exp, tmp_path, CKPT_BACKEND="last",
+                         STEPS_PER_DISPATCH="1")
+    assert f"Done: {exp}/dphubert.pth" in proc.stdout
+    for stage, steps in (("stage1", 3), ("stage2", 2)):
+        ckpt = torch.load(exp / stage / "ckpts" / "last.pt", weights_only=True)
+        assert ckpt["step"] == steps and ckpt["meta"]["steps_per_dispatch"] == 1
+        assert not (exp / stage / "ckpts" / "rotated").exists()
 
 
 def _stage1(corpus_tsv, teacher, exp_dir, extra=()):

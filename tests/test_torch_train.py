@@ -259,8 +259,8 @@ def test_entry_points_need_cuda_or_cpu_and_refuse_unported_options():
     assert state.student is not student  # a copy: the caller's module is left alone
     assert state.lambdas["lambda1"].item() == state.lambdas["lambda2"].item() == 0.0
     teacher = pt.wav2vec2_model(device="cpu", **_tiny_w2v2_config())
-    # scan_layers has no eager counterpart and steps_per_call is not ported:
-    # no such field
+    # scan_layers has no eager counterpart, and steps_per_call is an
+    # argument of make_train_step, not a configuration field: no such field
     for option in ("scan_layers", "steps_per_call"):
         with pytest.raises(TypeError, match=option):
             make_train_step(teacher, DistillConfig(**{option: True}), tx)
