@@ -62,7 +62,19 @@ full width with random weights from seeds:
   its write over 15 saves, rotation, a resume from a background-written
   file bit for bit, and the size gate's decision for the Base and the
   Large state.  The pipelines run with ``--steps_per_dispatch 4
-  --ckpt_backend rotated``, ``run_torch.sh``'s defaults.
+  --ckpt_backend rotated``, ``run_torch.sh``'s defaults;
+* data and tensor parallelism: one NCCL rank as a (1 x 1) mesh
+  runs the stage-1 step with its gradient all-reduce, eager and as a
+  4-step CUDA graph with the all-reduce captured, bit for bit the
+  mesh-less step (phase "dp_nccl_world1", with both step times and the
+  bytes all-reduced a step); two processes on the card over gloo (this
+  script with ``--parallel-rank``; NCCL refuses two ranks on one card) run
+  the same step at full width in the (1 data x 2 model) and (2 data x 1
+  model) layouts, held against the one-process step (loss 1e-3, gradient
+  norm 1e-3, cosines 0.9999), with each rank's launches and peak memory (phase
+  "parallel_card"); the packed kernels at the split step's 6 heads, (16,
+  749, 6, 64), against their plain versions (the kernels line's ``tp``
+  rows).  NCCL across cards is not run: the machine has one card.
 
 Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
@@ -154,6 +166,7 @@ from dphubert_torch.ops.wavlm_attention import (
     wavlm_kernel_body,
     wavlm_route,
 )
+from dphubert_torch.parallel.dryrun import check_ranks, run_rank, spawn
 from dphubert_torch.params import unflatten_params
 from dphubert_torch.serve import Predictor, pad_batch
 from dphubert_torch.train import (
@@ -2597,6 +2610,341 @@ def phase_recipe_driver() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Parallel: data and tensor parallelism of the distill step
+# ---------------------------------------------------------------------------
+
+PARALLEL_DIR = REPO / "build" / "smoke_parallel"
+TP_HEADS = 6  # HuBERT Base's 12 heads over a model group of 2
+# the gradients whose one-process norm is under this share of the global
+# norm are not held to the per-gradient cosine: in exact arithmetic the key
+# biases' gradient is 0 (softmax ignores a constant added to a row), and in
+# bf16 what is left is rounding noise, whose cosine means nothing
+PARALLEL_COS_MIN_SHARE = 1e-3
+PARALLEL_RANK_TIMEOUT_S = 600
+# two runs of one bf16 program, split differently, hold tighter than bf16
+# against fp32: the loss's relative error, the cosine (all the gradients
+# and each one), and the gathered gradient norm over the one-process norm
+# (a data average off by n_data shows there, not in a cosine)
+PARALLEL_LOSS_TOL = 1e-3
+PARALLEL_MIN_COS = 0.9999
+PARALLEL_NORM_TOL = 1e-3
+
+
+def phase_dp_nccl_world1() -> dict:
+    """One NCCL rank as a (1 x 1) mesh: the HuBERT Base stage-1 step at full
+    width (bf16, B = 16 x 15 s, dropout 0.1) with its gradient all-reduce
+    (one flat buffer, NCCL at world size 1: the sum of one rank) held bit
+    for bit (``deterministic``) against the mesh-less step: 4 eager steps,
+    then, as a 4-step CUDA graph with the all-reduce captured (its
+    communicator made by the key's eager first group), the first call and
+    two replays against 12 eager mesh-less steps (parameters, moments,
+    counters, generator, metrics).  Then, under cuDNN's default
+    algorithms, 3 segments of 4 eager mesh steps and of one replay, in
+    turns; the all-reduced bytes a step."""
+    import torch.distributed as dist
+
+    from dphubert_torch.parallel import multihost
+    from dphubert_torch.parallel.mesh import create_mesh
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group is already up")
+    multihost.initialize("cuda", backend="nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = create_mesh(1, 1, "cuda")
+        check(mesh.backend() == "nccl", f"backend {mesh.backend()}")
+        teacher, student = distill_models("cuda")
+        cfg = DistillConfig(compute_dtype="bfloat16")
+        T = int(TRAIN_SECONDS * SR)
+        L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
+        per_step = add_counts((1, model_launches(teacher.spec, L, False)),
+                              (1, model_launches(student.spec, L, True)))
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        stack = torch.randn(GRAPH_K, TRAIN_B, T, device="cuda", generator=gen)
+        ran = 0
+
+        def fresh(m=None):
+            return init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=32,
+                                    device="cuda", mesh=m)
+
+        def eager_group(step, state):
+            nonlocal ran
+            steps = []
+            for j in range(GRAPH_K):
+                state, metrics = step(state, (stack[j], None))
+                steps.append(metrics)
+            ran += GRAPH_K
+            return state, {k: torch.stack([m[k].float() for m in steps]) for k in steps[0]}
+
+        def same_metrics(got, want, what):
+            for k, v in want.items():
+                check(torch.equal(got[k], v), f"{what}: {k} {got[k].tolist()} vs {v.tolist()}")
+
+        reset_launch_counts()
+        with deterministic():
+            a, tx_a = fresh()
+            plain = make_train_step(teacher, cfg, tx_a)
+            want_m, want_s = [], []
+            for _ in range(3):
+                a, m = eager_group(plain, a)
+                want_m.append(m)
+                want_s.append(device_snapshot(a))
+            del a, tx_a, plain
+            b, tx_b = fresh(mesh)
+            b, m = eager_group(make_train_step(teacher, cfg, tx_b, mesh=mesh), b)
+            same_metrics(m, want_m[0], "eager mesh step")
+            n_tensors = same_snapshot(device_snapshot(b), want_s[0], "eager mesh step")
+            # every fp32 gradient and every metric but grad_norm, in one buffer
+            reduced_bytes = 4 * (sum(p.numel() for p in b.named_params().values()) + len(m) - 1)
+            del b, tx_b
+            c, tx_c = fresh(mesh)
+            group = make_train_step(teacher, cfg, tx_c, steps_per_call=GRAPH_K, mesh=mesh)
+            for call in range(3):
+                c, m = group(c, (stack, None))
+                ran += GRAPH_K
+                same_metrics(m, want_m[call], f"mesh graph call {call}")
+                same_snapshot(device_snapshot(c), want_s[call], f"mesh graph call {call}")
+            check(GraphedSteps.replays == 2, f"{GraphedSteps.replays} replays")
+            del c, tx_c, group, want_s
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        b, tx_b = fresh(mesh)
+        eager = make_train_step(teacher, cfg, tx_b, mesh=mesh)
+        c, tx_c = fresh(mesh)
+        group = make_train_step(teacher, cfg, tx_c, steps_per_call=GRAPH_K, mesh=mesh)
+        b, _ = eager_group(eager, b)  # warm
+        c, _ = group(c, (stack, None))  # the key's eager group and capture
+        ran += GRAPH_K
+        eager_seg, graph_seg = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, m = group(c, (stack, None))
+            torch.cuda.synchronize()
+            ran += GRAPH_K
+            graph_seg.append((time.perf_counter() - t0) / GRAPH_K)
+            t0 = time.perf_counter()
+            b, _ = eager_group(eager, b)
+            torch.cuda.synchronize()
+            eager_seg.append((time.perf_counter() - t0) / GRAPH_K)
+        for k, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"dp_nccl_world1: {k} = {v.tolist()}")
+        counts = launch_counts()
+        check(counts == {k: ran * v for k, v in per_step.items()},
+              f"dp_nccl_world1: {ran} steps ran {counts}, expected {per_step} a step")
+        eager_s, graph_s = statistics.median(eager_seg), statistics.median(graph_seg)
+        row = {"phase": "dp_nccl_world1", "backend": "nccl", "world_size": 1, "mesh": [1, 1],
+               "batch": [TRAIN_B, T], "dtype": "bfloat16", "dropout": DROPOUT,
+               "bit_exact": {"eager_steps": GRAPH_K, "graph_calls": 3, "graph_replays": 2,
+                             "tensors_compared": n_tensors,
+                             "metrics_compared": sorted(want_m[0])},
+               "allreduced_bytes_per_step": reduced_bytes,
+               "eager_step_s": eager_s, "eager_segments_s": eager_seg,
+               "graph_step_s": graph_s, "graph_segments_s": graph_seg,
+               "graph_over_eager": graph_s / eager_s,
+               "eager_audio_sec_per_s": TRAIN_B * TRAIN_SECONDS / eager_s,
+               "graph_audio_sec_per_s": TRAIN_B * TRAIN_SECONDS / graph_s,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "steps_run": ran, "launches": counts,
+               "launches_in_graphs": dict(GraphedSteps.replayed),
+               "seconds": time.perf_counter() - t_phase}
+        emit(row)
+        del b, c, tx_b, tx_c, eager, group, stack, teacher, student
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        multihost.shutdown()
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+
+
+def parallel_card_job(payload: dict, first) -> dict:
+    """The job of the two ranks of phase "parallel_card" (this script with
+    ``--parallel-rank``, ``dphubert_torch.parallel.dryrun``'s rank
+    harness): gloo on the one card, ``first`` the (1 x 2) mesh.  Rank 0
+    first takes the one-process bf16 gradient of the step (the reference);
+    then, for each layout, both ranks place a fresh state from the same
+    seed on the mesh, run the step's forward and backward on their rows
+    (the gradient average included), gather the split gradients and, on
+    rank 0, hold the loss and the gradients against the reference; then one
+    whole step (``make_train_step``) timed, its launches counted, and the
+    teacher's forward alone counted.  Returns this rank's rows."""
+    import torch.distributed as dist
+
+    from dphubert_torch.parallel.mesh import create_mesh
+    from dphubert_torch.parallel.multihost import process_row_slice
+    from dphubert_torch.parallel.sharding import gather_tensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = first.rank
+    out = {"rank": rank}
+    teacher, student = distill_models("cuda")
+    cfg = DistillConfig(compute_dtype="bfloat16")
+    T = int(TRAIN_SECONDS * SR)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    batch = torch.randn(TRAIN_B, T, device="cuda", generator=gen)
+    ref = None
+    if rank == 0:
+        state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=34,
+                                    device="cuda")
+        metrics, grads = make_grad_fn(teacher, cfg)(state, (batch, None))
+        ref = (metrics["loss"].item(), {n: g.detach().clone() for n, g in grads.items()})
+        del state, metrics, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["layouts"] = {}
+    for n_data, n_model in ((1, 2), (2, 1)):
+        mesh = first if (n_data, n_model) == (1, 2) else create_mesh(n_data, n_model, "cuda")
+        row = {"mesh": [n_data, n_model], "backend": mesh.backend()}
+        torch.cuda.reset_peak_memory_stats()
+        state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768,
+                                     seed=34, device="cuda", mesh=mesh)
+        rows = process_row_slice(mesh.data_rank, n_data, TRAIN_B)
+        local = (batch[rows], None)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics, grads = make_grad_fn(teacher, cfg, mesh)(state, local)
+        torch.cuda.synchronize()
+        row["grad_step_s"] = time.perf_counter() - t0
+        row["launches_forward_backward"] = nonzero(launch_counts())
+        heads = {m.heads for m in state.student.modules() if hasattr(m, "head_offset")}
+        row["student_heads_per_layer"] = sorted(heads)
+        full = {n: gather_tensor(state.shards[n], g, mesh) if n in state.shards else g
+                for n, g in grads.items()}
+        if rank == 0:
+            loss_ref, g_ref = ref
+            loss = metrics["loss"].item()
+            flat = torch.cat([full[n].flatten() for n in g_ref])
+            flat_ref = torch.cat([g_ref[n].flatten() for n in g_ref])
+            norm = flat_ref.double().norm().item()
+            norm_ratio = flat.double().norm().item() / norm
+            cos = {n: _cosine(full[n], g) for n, g in g_ref.items()
+                   if g.double().norm().item() >= PARALLEL_COS_MIN_SHARE * norm}
+            small = {n: _cosine(full[n], g) for n, g in g_ref.items() if n not in cos}
+            row.update(loss=loss, loss_one_process=loss_ref,
+                       loss_rel_err=abs(loss - loss_ref) / abs(loss_ref),
+                       grad_norm_ratio=norm_ratio,
+                       grad_cosine_all=_cosine(flat, flat_ref),
+                       grad_cosine_min_per_param=min(cos.values()),
+                       grad_cosine_worst3=sorted(cos.items(), key=lambda kv: kv[1])[:3],
+                       params_held_per_param=len(cos),
+                       params_below_share=len(small),
+                       below_share_cosine_min=min(small.values(), default=None),
+                       split_params=len(state.shards))
+            check(row["loss_rel_err"] <= PARALLEL_LOSS_TOL,
+                  f"parallel {n_data}x{n_model}: loss {loss} vs one process {loss_ref}")
+            check(abs(norm_ratio - 1) <= PARALLEL_NORM_TOL,
+                  f"parallel {n_data}x{n_model}: gradient norm {norm_ratio} x one process's")
+            check(row["grad_cosine_all"] >= PARALLEL_MIN_COS,
+                  f"parallel {n_data}x{n_model}: gradient cosine {row['grad_cosine_all']}")
+            check(row["grad_cosine_min_per_param"] >= PARALLEL_MIN_COS,
+                  f"parallel {n_data}x{n_model}: gradient cosines {row['grad_cosine_worst3']}")
+        del metrics, grads, full
+        # one whole step, timed; its launches; the teacher's forward alone
+        step = make_train_step(teacher, cfg, tx, mesh=mesh)
+        state, _ = step(state, local)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        row["step_s"] = time.perf_counter() - t0
+        row["launches_per_step"] = nonzero(launch_counts())
+        check(np.isfinite(m["loss"].item()), f"parallel {n_data}x{n_model}: loss not finite")
+        reset_launch_counts()
+        with torch.no_grad():
+            teacher.extract_features(batch[rows].to(torch.bfloat16))
+        row["teacher_forward_launches"] = nonzero(launch_counts())
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        want_fwd = 24  # 12 student layers (their heads) + 12 teacher layers (12 heads)
+        check(row["launches_per_step"] == {"packed_attention_fwd": want_fwd,
+                                           "packed_attention_bwd_dq": 12,
+                                           "packed_attention_bwd_dkv": 12}
+              and row["teacher_forward_launches"] == {"packed_attention_fwd": 12},
+              f"parallel {n_data}x{n_model} rank {rank}: launches {row}")
+        check(row["student_heads_per_layer"] == [12 // n_model],
+              f"student heads {row['student_heads_per_layer']}")
+        out["layouts"][f"{n_data}x{n_model}"] = row
+        del state, tx, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def dropout_draw_ms(spec, L: int) -> dict:
+    """The uniform draws of one Base step's activation dropouts (the
+    feature projection's, the transformer's, and per layer the attention
+    output's and the FFN's two), timed with CUDA events: at the global
+    batch's shape, which every rank of a mesh draws, and at the shapes a
+    rank keeps under (2 data x 1 model) and, for the FFN's intermediate,
+    under (1 data x 2 model).  What a rank pays for drawing the global
+    mask is global minus its own share."""
+    E = spec.embed_dim
+    n = len(spec.layers)
+    inter = spec.layers[0].feed_forward.intermediate_features
+    gen = torch.Generator(device="cuda").manual_seed(35)
+
+    def shapes(B, I):
+        return [(B, L, E)] * (2 + 2 * n) + [(B, L, I)] * n
+
+    def draw(shape_list):
+        for shape in shape_list:
+            torch.rand(shape, generator=gen, device="cuda")
+
+    return {name: time_ms(lambda sl=sl: draw(sl), reps=10)
+            for name, sl in (("global", shapes(TRAIN_B, inter)),
+                             ("rank_2x1", shapes(TRAIN_B // 2, inter)),
+                             ("rank_1x2", shapes(TRAIN_B, inter // 2)))}
+
+
+def phase_parallel_card(spec) -> dict:
+    """Two processes on the one card over gloo (CUDA tensors), in the (1
+    data x 2 model) and (2 data x 1 model) layouts: the HuBERT Base step at
+    full width (bf16, B = 16 x 15 s, dropout 0.1), eager, K = 1, each rank
+    on its rows and heads: loss within 1e-3 of the one-process bf16 step,
+    the gathered gradient norm within 1e-3 of its norm, the cosine of all
+    the gathered gradients and of every gradient (past
+    ``PARALLEL_COS_MIN_SHARE`` of the norm) >= 0.9999; each rank's launches
+    (under (1 x 2): 12 student forwards, dq and dkv at 6 heads, 12 teacher
+    forwards at 12) and peak memory.  NCCL refuses two ranks on one card,
+    so NCCL across cards is not run here.  Before that, the packed kernels
+    at the split step's shape, (16, 749, 6, 64), against their plain
+    versions in fp32 and bf16."""
+    t_phase = time.perf_counter()
+    L = int(frames(spec, [TRAIN_SECONDS])[0])
+    kernels = phase_train_kernels(spec, cases=[("tp2", TRAIN_B, L, TP_HEADS, None)],
+                                  path="parallel_card")
+    draws = dropout_draw_ms(spec, L)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    ranks, results = spawn("card", 2, PARALLEL_DIR, {}, (1, 2),
+                           entry=[str(pathlib.Path(__file__).resolve()), "--parallel-rank"],
+                           device="cuda", backend="gloo", timeout=PARALLEL_RANK_TIMEOUT_S)
+    check_ranks(results, "parallel_card rank")
+    counts = dict.fromkeys(WRAPPERS, 0)
+    for got in ranks:
+        for lay in got["layouts"].values():
+            for name, n in lay["launches_per_step"].items():
+                counts[name] += n
+    row = {"phase": "parallel_card", "backend": "gloo (on CUDA tensors)", "processes": 2,
+           "card": 1, "batch": [TRAIN_B, L],
+           "dtype": "bfloat16", "dropout": DROPOUT,
+           "loss_tol": PARALLEL_LOSS_TOL, "min_cos": PARALLEL_MIN_COS,
+           "norm_tol": PARALLEL_NORM_TOL, "per_param_cos_min_share": PARALLEL_COS_MIN_SHARE,
+           "ranks": [{"rank": g["rank"], **g["layouts"]} for g in ranks],
+           "activation_dropout_draw_ms": draws,
+           "launches": counts, "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return {"row": row, "kernels": kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2609,6 +2957,7 @@ def main() -> int:
 
     smi = phase_card()
     base = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
+    base_spec = base.spec
     kernels = phase_kernels(base.spec)
     train_kernels = phase_train_kernels(base.spec)
     flash_kernels = phase_flash_kernels()
@@ -2689,6 +3038,14 @@ def main() -> int:
     phase_ckpt(large_train["ckpt"])
     path_launches["ckpt"] = launch_counts()
     path_launches["recipe_driver"] = phase_recipe_driver()["launches"]
+
+    # path 7: parallel: one NCCL rank as a (1 x 1) mesh, eager and as a
+    # captured 4-step graph, bit for bit the mesh-less step; two gloo ranks
+    # on the card in both layouts, and the packed kernels at 6 heads
+    reset_launch_counts()
+    graph_paths["dp_nccl_world1"] = phase_dp_nccl_world1()
+    parallel = phase_parallel_card(base_spec)
+    path_launches["parallel_card"] = parallel["row"]["launches"]
     for path, row in graph_paths.items():
         path_launches[path] = row["launches"]
     graph_replayed = {p: row["launches_in_graphs"] for p, row in graph_paths.items()}
@@ -2712,6 +3069,9 @@ def main() -> int:
     large_rows = {("large_train", name): large_kernels[(name, "large_train", bf16)]
                   for name in ("packed_attention_fwd", "packed_attention_bwd_dq",
                                "packed_attention_bwd_dkv")}
+    tp_rows = {name: parallel["kernels"][(name, "tp2", bf16)]
+               for name in ("packed_attention_fwd", "packed_attention_bwd_dq",
+                            "packed_attention_bwd_dkv")}
     line = []
     for name, r in rows.items():
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
@@ -2736,6 +3096,13 @@ def main() -> int:
                                                  "max_abs_err", "achieved_tflops", "body")
                               if k in lr}
             entry["large"]["shape"] = lr["shape_BLHD"]
+        if name in tp_rows:  # the tensor-parallel step's shape: 6 heads a rank
+            tr = tp_rows[name]
+            entry["tp"] = {k: tr[k] for k in ("ms", "ms_no_dropout", "plain_ms", "library_ms",
+                                              "library_dropout_ms", "bound_ms", "bound_by",
+                                              "max_abs_err", "achieved_tflops", "body")
+                           if k in tr}
+            entry["tp"]["shape"] = tr["shape_BLHD"]
         if name in serve_rows:  # its serving row, without dropout
             sr = serve_rows[name]
             entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2758,4 +3125,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--parallel-rank":
+        run_rank({"card": parallel_card_job}, sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -1,9 +1,9 @@
 """Shared CLI plumbing for the pipeline stages (the TPU package's
-``cli/common.py``, on one card)."""
+``cli/common.py``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 from ..data import AudioDataset, DistillDataLoader, StaticShapeBatcher
 from ..interop.torch_ckpt import load_checkpoint, model_from_checkpoint
@@ -38,13 +38,17 @@ def merge_params(template: Dict[str, object], source: Dict[str, object]) -> Dict
     return {k: source.get(k, v) for k, v in template.items()}
 
 
-def build_loader(args, subset: str, shuffle_seed: int = 0) -> DistillDataLoader:
-    """``seconds_per_batch`` is the audio budget of one batch, as in the
-    reference CLI; the rung ladder is the TPU package's (32,000 to 250,000
-    samples, ``num_shapes`` rungs).  Batches are fed as int16 PCM (half the
-    host-to-card bytes of float32, and the same values).  The epoch comes
-    in same-rung runs of ``--steps_per_dispatch`` batches, so that the
-    trainer can stack them into one dispatch."""
+def build_loader(args, subset: str, num_replicas: int = 1,
+                 shard: Optional[Tuple[int, int]] = None,
+                 shuffle_seed: int = 0) -> DistillDataLoader:
+    """``seconds_per_batch`` is the audio budget of one data rank's batch,
+    as in the reference CLI (each DDP rank packs its own); the global batch
+    is ``num_replicas`` times that and ``shard`` = (data rank, data ranks)
+    decodes this rank's rows of it.  The rung ladder is the TPU package's
+    (32,000 to 250,000 samples, ``num_shapes`` rungs).  Batches are fed as
+    int16 PCM (half the host-to-card bytes of float32, and the same
+    values).  The epoch comes in same-rung runs of ``--steps_per_dispatch``
+    batches, so that the trainer can stack them into one dispatch."""
     dataset = AudioDataset(args.tsv_dir, subset)
     batcher = StaticShapeBatcher(
         dataset.len_list,
@@ -53,7 +57,8 @@ def build_loader(args, subset: str, shuffle_seed: int = 0) -> DistillDataLoader:
         max_len=250000,
         num_shapes=args.num_shapes,
         seed=shuffle_seed,
+        num_replicas=num_replicas,
         run_length=getattr(args, "steps_per_dispatch", 1),
     )
     return DistillDataLoader(dataset, batcher, num_workers=args.num_workers,
-                             seed=shuffle_seed, feed_dtype="int16")
+                             seed=shuffle_seed, shard=shard, feed_dtype="int16")

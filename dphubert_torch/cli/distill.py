@@ -1,5 +1,5 @@
 """Stage 1: joint distillation + pruning (reference ``distill.py``), on one
-card.
+card or on N (one process per card).
 
 Usage mirrors the reference CLI and the TPU package's, flag for flag where
 the work is ported, plus ``--device`` (default ``cuda``)::
@@ -10,12 +10,24 @@ the work is ported, plus ``--device`` (default ``cuda``)::
         --student_ckpt pretrained/hubert-base-ls960.pth \\
         --exp_dir exp/stage1 --max_updates 50000 ...
 
+On N processes (``python -m torch.distributed.run --standalone
+--nproc_per_node N -m dphubert_torch.cli.distill ...``): a (N /
+``--tensor_parallel`` data x ``--tensor_parallel`` model) mesh
+(``--num_data_shards``, if given, must equal N / ``--tensor_parallel``),
+NCCL on the card and gloo with ``--device cpu``;
+``--seconds_per_batch`` is one data rank's share of the global batch.
+Rank 0 logs and writes; every rank exits with the same code.  ``--fsdp``
+is refused (ROADMAP queue 1, item 7b).
+
 Exit codes: 0 done (``<exp_dir>/ckpts/distilled.pth`` written), 75 stopped
 by a SIGTERM or the RSS watchdog (``DPHUBERT_MAX_RSS_GB``; resumable), 76
 stopped by the ``DPHUBERT_DEADLINE_TS`` deadline (resumable; a recipe
 script must not resume into the same deadline).  Resume with
 ``--resume_checkpoint <exp_dir>/ckpts/last.pt`` (``--ckpt_backend last``)
 or ``<exp_dir>/ckpts/rotated`` (``rotated``: the newest step in it).
+torchrun exits 1 whatever code its ranks exit with, so on several
+processes rank 0 also writes an early stop's code (75 or 76) to
+``<exp_dir>/exit_code``, which the recipe scripts read.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ import torch
 
 from ..interop.torch_ckpt import load_checkpoint
 from ..models.model import resolve_device, wav2vec2_model
+from ..parallel import multihost
+from ..parallel.mesh import create_mesh
 from ..train.distill_module import DistillConfig
 from ..train.projections import parse_layer_groups
 from ..train.trainer import export_student_checkpoint, train
@@ -65,6 +79,17 @@ def add_common_training_args(parser: ArgumentParser) -> None:
     parser.add_argument("--warmup_updates", default=15000, type=int)
     parser.add_argument("--max_updates", default=50000, type=int)
     parser.add_argument("--clip_norm", default=10.0, type=float)
+    parser.add_argument("--num_data_shards", default=0, type=int,
+                        help="Mesh data-axis size, always processes / --tensor_parallel "
+                        "(0 derives it; another value is refused).  The TPU CLI's flag can "
+                        "pick fewer devices; here every process is a rank of the mesh.")
+    parser.add_argument("--tensor_parallel", default=1, type=int,
+                        help="Mesh model-axis size: attention heads and FFN units split "
+                        "over it (Megatron row/column split; a layer whose heads or units "
+                        "do not divide stays replicated).  Not with WavLM.")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="Not ported yet (FSDP / HSDP: ROADMAP queue 1, item 7b): "
+                        "refused.")
     parser.add_argument("--accum_grad", default=1, type=int)
     parser.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                         help="Compute dtype (parameters stay fp32).")
@@ -100,11 +125,59 @@ def _parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _mesh(args, device):
+    """The (processes / --tensor_parallel x --tensor_parallel) mesh of a
+    run of several processes, else None.  ``--num_data_shards`` is only
+    checked against it."""
+    world = multihost.world_size()
+    n_model = max(1, args.tensor_parallel)
+    if n_model > world:
+        raise SystemExit(f"--tensor_parallel {n_model} needs at least {n_model} devices "
+                         f"(one process each) but only {world} are in the run")
+    if world % n_model:
+        raise SystemExit(f"--tensor_parallel {n_model} does not divide the run's {world} "
+                         "processes")
+    n_data = world // n_model
+    if args.num_data_shards not in (0, n_data):
+        raise SystemExit(f"--num_data_shards {args.num_data_shards} needs "
+                         f"{args.num_data_shards * n_model} devices (one process each) but "
+                         f"the run has {world}"
+                         + (": start it under python -m torch.distributed.run"
+                            if world == 1 else ""))
+    return None if world == 1 else create_mesh(n_data, n_model, device.type)
+
+
+def _exit(args, mesh, code: int):
+    """Exit with ``code``; on a mesh rank 0 first writes it to
+    ``<exp_dir>/exit_code`` (torchrun's own exit code does not carry it)."""
+    if mesh is not None and mesh.is_main:
+        (pathlib.Path(args.exp_dir) / "exit_code").write_text(f"{code}\n")
+    raise SystemExit(code)
+
+
 def run_train(args, use_reg: bool = True):
     """Train stage 1 (``use_reg``) or the final distill, export the student
     to ``<exp_dir>/ckpts/distilled.pth``; exits 75 or 76 when stopped early
-    (before the export, so no partial stage output lands there)."""
+    (before the export, so no partial stage output lands there).  Under
+    torchrun every process runs it: the process group is started here and
+    destroyed at the end."""
+    if args.fsdp:
+        raise SystemExit("--fsdp is not ported yet: FSDP / HSDP is ROADMAP.md queue 1, item "
+                         "7b (\"7b FSDP/HSDP\"); train data parallel (every process a data "
+                         "rank), or tensor parallel with --tensor_parallel")
     device = resolve_device(args.device)
+    started = not multihost.is_initialized()
+    device = multihost.initialize(device)
+    started = started and multihost.is_initialized()
+    try:
+        return _run_train(args, use_reg, device)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _run_train(args, use_reg: bool, device):
+    mesh = _mesh(args, device)
     teacher, _ = load_model_ckpt(args.teacher_ckpt, device)
 
     student_ckpt = load_checkpoint(args.student_ckpt)
@@ -138,10 +211,14 @@ def run_train(args, use_reg: bool = True):
         accum_grad=args.accum_grad,
     )
 
-    loader = build_loader(args, args.train_subset, shuffle_seed=args.seed)
+    n_data = 1 if mesh is None else mesh.n_data
+    shard = None if n_data == 1 else (mesh.data_rank, n_data)
+    loader = build_loader(args, args.train_subset, num_replicas=n_data, shard=shard,
+                          shuffle_seed=args.seed)
     valid_loader = None
     try:
-        valid_loader = build_loader(args, "valid", shuffle_seed=args.seed)
+        valid_loader = build_loader(args, "valid", num_replicas=n_data, shard=shard,
+                                    shuffle_seed=args.seed)
     except FileNotFoundError:
         pass
 
@@ -166,6 +243,7 @@ def run_train(args, use_reg: bool = True):
         ckpt_backend=args.ckpt_backend,
         ckpt_keep=args.ckpt_keep,
         device=device,
+        mesh=mesh,
     )
 
     accum = max(cfg.accum_grad, 1)
@@ -173,15 +251,16 @@ def run_train(args, use_reg: bool = True):
         print(f"[distill] wall-clock deadline at step {state.step} "
               f"(< {args.max_updates} updates): exiting 76 (checkpointed; "
               "resume later with --resume_checkpoint)", flush=True)
-        raise SystemExit(76)
+        _exit(args, mesh, 76)
     if state.step < args.max_updates * accum:
         print(f"[distill] preempted at step {state.step} "
               f"(< {args.max_updates} updates): exiting 75 (resumable)", flush=True)
-        raise SystemExit(75)
+        _exit(args, mesh, 75)
 
     out = pathlib.Path(args.exp_dir) / "ckpts" / "distilled.pth"
     export_student_checkpoint(state, cfg, out)
-    print(f"Saved distilled checkpoint to {out}", flush=True)
+    if multihost.is_main():
+        print(f"Saved distilled checkpoint to {out}", flush=True)
     return state
 
 

@@ -1,14 +1,14 @@
-"""Dataset + prefetching loader (the TPU package's ``data/loader.py``,
-single process).
+"""Dataset + prefetching loader (the TPU package's ``data/loader.py``).
 
 ``AudioDataset`` mirrors the reference's manifest-driven dataset
 (``audio_dataset.py:220-280``): decode a waveform, check the manifest
 length.  ``DistillDataLoader`` is the feed: a background thread pool decodes
 and random-crops the next batches to their rung's length while the card
 computes, and hands them over as numpy arrays; the trainer copies each to
-the card one step ahead (``train/trainer.py``).  The TPU package's ``shard``
-(multi-host decoding of a slice of each batch) waits for the parallel slice
-of the port.
+the card one step ahead (``train/trainer.py``).  In a data-parallel run
+every process sees the same global batches (the batcher is seeded by
+(seed, epoch)) and ``shard=(p, n)`` decodes only rows ``[p*B/n,
+(p+1)*B/n)`` of each, as the TPU package's loader does.
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ class DistillDataLoader:
         prefetch: int = 4,
         rand_crop: bool = True,
         seed: int = 0,
+        shard: Optional[Tuple[int, int]] = None,  # (data rank, data ranks)
         feed_dtype: str = "float32",
     ) -> None:
         self.dataset = dataset
@@ -78,6 +79,9 @@ class DistillDataLoader:
         self.prefetch = prefetch
         self.rand_crop = rand_crop
         self.seed = seed
+        # data parallel: decode only this rank's rows; the batch order is
+        # deterministic, so every rank agrees on the global batch
+        self.shard = shard
         # "int16": feed PCM-scale integers and let the train step divide by
         # 32768 on the card: bit-identical to the float32 feed for
         # int16-sourced audio (WAV/FLAC), at half the host-to-card bytes
@@ -86,6 +90,10 @@ class DistillDataLoader:
         self.feed_dtype = feed_dtype
 
     def _make_batch(self, rung: int, idx: np.ndarray, rng: np.random.Generator):
+        if self.shard is not None:
+            p, n = self.shard
+            local = len(idx) // n
+            idx = idx[p * local : (p + 1) * local]
         int16 = self.feed_dtype == "int16"
         out = np.empty((len(idx), rung), dtype=np.int16 if int16 else np.float32)
         for row, i in enumerate(idx):

@@ -24,13 +24,27 @@ as in the TPU package's eval path.  ``remat`` checkpoints each encoder
 layer (``remat_layer``), as the TPU package checkpoints each layer.
 LayerDrop is not ported (it only acts in ``forward(training=True)``, which
 raises).
+
+Parallel training (``parallel/sharding.py``) gives the modules that draw
+dropout a ``Shard``: this rank's block of the global batch's rows, and, on
+a (data x model) mesh, whether a layer's heads (``SelfAttention``) or
+intermediate units (``FeedForward``) are split over the model group.  A
+split layer runs its own heads through the same kernels with
+``num_heads`` = its share, takes its slice of the replicated head or
+intermediate gate after Megatron's *f* (``parallel/comm.py``), and sums
+the partial output projection with *g*, the bias added after.  Every
+random number is the one-process run's: the kernels' dropout seed is
+folded by the rank's batch and head offsets
+(``ops/attention_common.fold_dropout_seed``), and an activation's dropout
+mask is drawn at the global tensor's shape and this rank's block taken.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +59,11 @@ from ..configs import (
     FeedForwardSpec,
     ModelSpec,
 )
+from ..ops.attention_common import fold_dropout_seed
 from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
 from ..ops.wavlm_attention import wavlm_attention_qkv
+from ..parallel.comm import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-5
 
@@ -85,14 +101,54 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
         t.uniform_(-bound, bound, generator=gen)
 
 
-def _dropout(x, rate: float, generator: Optional[torch.Generator]):
+@dataclass(frozen=True)
+class Shard:
+    """Where this rank's part of a sharded activation lies: rows
+    ``data_rank`` of ``n_data`` equal blocks of the global batch, and the
+    model group (``model_rank`` of ``n_model``) over which split layers
+    divide their heads or intermediate units."""
+
+    data_rank: int = 0
+    n_data: int = 1
+    model_rank: int = 0
+    n_model: int = 1
+    group: Any = None
+
+    def __deepcopy__(self, memo):
+        return self  # holds a process group, a handle
+
+
+def _dropout(x, rate: float, generator: Optional[torch.Generator],
+             shard: Optional[Shard] = None, cols: Optional[Tuple[int, int]] = None):
     """Inverted dropout drawn from ``generator`` (on x's device); the
-    identity when there is no generator (eval) or the rate is 0."""
+    identity when there is no generator (eval) or the rate is 0.
+
+    On a sharded activation (``shard`` with more than one data rank, or
+    ``cols``: (offset, full width) of a split last dimension) the uniform
+    draws of the global tensor are made and this rank's block of them
+    taken: every layout then drops exactly the one-process run's units,
+    and the generators of all ranks stay in step."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if shard is None or (shard.n_data == 1 and cols is None):
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        B = x.shape[0]
+        width = x.shape[-1] if cols is None else cols[1]
+        u = torch.rand((B * shard.n_data,) + tuple(x.shape[1:-1]) + (width,),
+                       generator=generator, device=x.device)
+        u = u[shard.data_rank * B:(shard.data_rank + 1) * B]
+        if cols is not None:
+            u = u[..., cols[0]:cols[0] + x.shape[-1]]
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def _model_slice(gate: torch.Tensor, shard: Shard, offset: int, n: int) -> torch.Tensor:
+    """A split layer's slice of a replicated gate, after *f*: the gate's
+    gradient then sums every model rank's slice (the sparsity term reads
+    the whole gate on every rank and so counts once)."""
+    return copy_to_model(gate, shard.group)[offset:offset + n]
 
 
 def _gate(gates: Optional[dict], *path: str):
@@ -254,6 +310,8 @@ def output_lengths(spec: ModelSpec, lengths):
 class FeatureProjection(nn.Module):
     """LayerNorm -> Linear(in -> embed) -> Dropout."""
 
+    shard: Optional[Shard] = None
+
     def __init__(self, in_features: int, out_features: int, dropout: float):
         super().__init__()
         self.dropout = dropout
@@ -261,7 +319,8 @@ class FeatureProjection(nn.Module):
         self.projection = Linear(in_features, out_features)
 
     def forward(self, x, generator=None):
-        return _dropout(self.projection(self.layer_norm(x)), self.dropout, generator)
+        return _dropout(self.projection(self.layer_norm(x)), self.dropout, generator,
+                        self.shard)
 
 
 class WeightNormConv(nn.Module):
@@ -394,11 +453,18 @@ class Embedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with decoupled inner width H*D."""
+    """Multi-head self-attention with decoupled inner width H*D.
+
+    ``heads`` of the layer's heads run here, from ``head_offset`` on: all of
+    them, or this model rank's share where ``set_shard`` splits them."""
+
+    shard: Optional[Shard] = None
+    split = False  # heads split over the model group
 
     def __init__(self, spec: AttentionSpec):
         super().__init__()
         self.spec = spec
+        self.heads, self.head_offset = spec.num_heads, 0
         inner = spec.num_heads * spec.head_dim
         self.k_proj = Linear(spec.embed_dim, inner)
         self.v_proj = Linear(spec.embed_dim, inner)
@@ -409,6 +475,15 @@ class SelfAttention(nn.Module):
         if spec.prune_layer:
             self.hard_concrete_for_layer = HardConcrete(1, 0.01)
 
+    def set_shard(self, shard: Shard, split: bool) -> None:
+        """Take this rank's rows (``shard``), and with ``split`` its
+        ``num_heads / n_model`` heads (the parameters are narrowed by
+        ``parallel/sharding.py``)."""
+        self.shard, self.split = shard, split
+        H = self.spec.num_heads
+        self.heads = H // shard.n_model if split else H
+        self.head_offset = shard.model_rank * self.heads if split else 0
+
     def _qkv(self, x):
         """One fused (B*L, E) @ (E, 3*H*D) product; q, k, v stay views of
         it."""
@@ -418,22 +493,33 @@ class SelfAttention(nn.Module):
 
     def _dropout_seed(self, x, generator):
         """(rate, seed): with dropout, one int32 on the device that the
-        kernels read there."""
+        kernels read there; on a shard, folded by its first row and head in
+        the one-process batch (``fold_dropout_seed``)."""
         rate = self.spec.dropout if generator is not None else 0.0
         seed = None
         if rate > 0.0:
             seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
                                  device=x.device).to(torch.int32)
+            if self.shard is not None:
+                seed = fold_dropout_seed(seed, self.shard.data_rank * x.shape[0],
+                                         self.head_offset)
         return rate, seed
 
     def _output(self, out, gates):
         """Head gates, the output projection and the layer gate."""
         B, L, _ = out.shape
-        H, D = self.spec.num_heads, self.spec.head_dim
+        H, D = self.heads, self.spec.head_dim
         head_gate = _gate(gates, "heads")
         if head_gate is not None:
+            if self.split:
+                head_gate = _model_slice(head_gate, self.shard, self.head_offset, H)
             out = (out.view(B, L, H, D) * head_gate.to(out.dtype)[:, None]).view(B, L, H * D)
-        out = self.out_proj(out)
+        if self.split:
+            partial = F.linear(out, self.out_proj.weight.to(out.dtype))
+            out = (reduce_from_model(partial, self.shard.group)
+                   + self.out_proj.bias.to(out.dtype))
+        else:
+            out = self.out_proj(out)
         layer_gate = _gate(gates, "layer")
         if layer_gate is not None:
             out = out * layer_gate.to(out.dtype)
@@ -444,7 +530,9 @@ class SelfAttention(nn.Module):
         ``{"heads": (H,), "layer": (1,)}`` entries or None; ``generator``
         turns attention-probability dropout on (in the kernel)."""
         L = x.shape[1]
-        H, D = self.spec.num_heads, self.spec.head_dim
+        H, D = self.heads, self.spec.head_dim
+        if self.split:
+            x = copy_to_model(x, self.shard.group)
         qkv = self._qkv(x)
         rate, seed = self._dropout_seed(x, generator)
         attend = (packed_attention_qkv if attention_route(L, H, D) == "packed"
@@ -487,6 +575,16 @@ class WavLMSelfAttention(SelfAttention):
             with torch.no_grad():
                 self.gru_rel_pos_const.fill_(1.0)
 
+    def set_shard(self, shard: Shard, split: bool) -> None:
+        """Data parallel only: the heads' split would also have to slice the
+        (TH, L, L) bias and the GRU gate's rows."""
+        if shard.n_model > 1:
+            raise NotImplementedError(
+                "WavLM under --tensor_parallel > 1 is not ported: its split would slice the "
+                "position bias and the GRU gate too (ROADMAP.md, queue 1, item 7c: \"WavLM "
+                "under TP\"); run DPWavLM data parallel (--tensor_parallel 1)")
+        super().set_shard(shard, split)
+
     def _gate_a_1(self, x):
         """(B, TH, L) fp32 gate from the pre-projection input, split into
         TH chunks: sigmoid of the 8 outputs summed in pairs of four, then
@@ -527,11 +625,17 @@ class WavLMSelfAttention(SelfAttention):
 
 class FeedForward(nn.Module):
     """Linear -> GELU -> Dropout -> [intermediate gate] -> Linear -> Dropout
-    -> [layer gate]."""
+    -> [layer gate].  ``units`` intermediate units run here, from
+    ``unit_offset`` on (a model rank's share where ``set_shard`` splits
+    them)."""
+
+    shard: Optional[Shard] = None
+    split = False  # intermediate units split over the model group
 
     def __init__(self, spec: FeedForwardSpec):
         super().__init__()
         self.spec = spec
+        self.units, self.unit_offset = spec.intermediate_features, 0
         self.intermediate_dense = Linear(spec.io_features, spec.intermediate_features)
         self.output_dense = Linear(spec.intermediate_features, spec.io_features)
         if spec.prune_intermediate:
@@ -541,13 +645,32 @@ class FeedForward(nn.Module):
         if spec.prune_layer:
             self.hard_concrete_for_layer = HardConcrete(1, 0.01)
 
+    def set_shard(self, shard: Shard, split: bool) -> None:
+        self.shard, self.split = shard, split
+        n = self.spec.intermediate_features
+        self.units = n // shard.n_model if split else n
+        self.unit_offset = shard.model_rank * self.units if split else 0
+
     def forward(self, x, gates=None, generator=None):
+        sh = self.shard
+        cols = None
+        if self.split:
+            x = copy_to_model(x, sh.group)
+            cols = (self.unit_offset, self.spec.intermediate_features)
         y = _dropout(F.gelu(self.intermediate_dense(x)), self.spec.intermediate_dropout,
-                     generator)
+                     generator, sh, cols)
         interm_gate = _gate(gates, "intermediate")
         if interm_gate is not None:
+            if self.split:
+                interm_gate = _model_slice(interm_gate, sh, self.unit_offset, self.units)
             y = y * interm_gate.to(y.dtype)
-        y = _dropout(self.output_dense(y), self.spec.output_dropout, generator)
+        if self.split:
+            partial = F.linear(y, self.output_dense.weight.to(y.dtype))
+            y = (reduce_from_model(partial, sh.group)
+                 + self.output_dense.bias.to(y.dtype))
+        else:
+            y = self.output_dense(y)
+        y = _dropout(y, self.spec.output_dropout, generator, sh)
         layer_gate = _gate(gates, "layer")
         if layer_gate is not None:
             y = y * layer_gate.to(y.dtype)
@@ -558,6 +681,8 @@ class EncoderLayer(nn.Module):
     """Pre- or post-norm residual block; either sublayer may be pruned away.
     Both LayerNorms exist, and in the post-norm path both apply even when a
     sublayer is missing."""
+
+    shard: Optional[Shard] = None
 
     def __init__(self, spec: EncoderLayerSpec):
         super().__init__()
@@ -585,7 +710,7 @@ class EncoderLayer(nn.Module):
                                                   generator)
             else:
                 x = self.attention(x, lengths, att_gates, generator)
-            x = residual + _dropout(x, self.dropout, generator)
+            x = residual + _dropout(x, self.dropout, generator, self.shard)
         if self.layer_norm_first:
             if self.feed_forward is not None:
                 x = x + self.feed_forward(self.final_layer_norm(x), ff_gates, generator)
@@ -634,6 +759,8 @@ def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias
 
 
 class Transformer(nn.Module):
+    shard: Optional[Shard] = None
+
     def __init__(self, spec: ModelSpec):
         super().__init__()
         self.layer_norm_first = spec.transformer_layer_norm_first
@@ -648,7 +775,7 @@ class Transformer(nn.Module):
         x = x + self.pos_conv_embed(x)
         if self.layer_norm_first:
             x = self.layer_norm(x)
-        return _dropout(x, self.dropout, generator)
+        return _dropout(x, self.dropout, generator, self.shard)
 
     def get_intermediate_outputs(self, x, lengths, num_layers: Optional[int] = None,
                                  gates=None, generator=None, remat: bool = False):

@@ -78,6 +78,22 @@ def dropout_keep_mask(
     return x <= dropout_threshold(keep)
 
 
+def fold_dropout_seed(seed: torch.Tensor, b_off: int, h_off: int) -> torch.Tensor:
+    """The one-element int32 seed that makes a call on rows ``b_off``...
+    and heads ``h_off``... of a batch draw that block of the whole batch's
+    mask: seed + b_off*0x9E3779B1 + h_off*0x85EBCA77 mod 2**32, in uint32
+    arithmetic on the seed's device (no host sync, so it can be captured in
+    a CUDA graph).  The kernels and ``dropout_keep_mask`` hash seed +
+    b*0x9E3779B1 + h*0x85EBCA77 with b and h local to the call, and that sum
+    is linear mod 2**32, so no kernel changes.  The seed itself where both
+    offsets fold to 0."""
+    fold = (int(b_off) * _SEED_B + int(h_off) * _SEED_H) & _U32
+    if fold == 0:
+        return seed
+    s = (seed.to(torch.int64) + fold) & _U32
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """fp32 for fp32 and bf16 inputs (the kernels' accumulation type);
     float64 stays float64 so gradcheck can run the plain versions."""

@@ -14,10 +14,16 @@ with ``torch.load(weights_only=True)``:
                                           # dropout), on the card or the CPU
      "epoch": int, "batch_in_epoch": int, # the loader's position
      "meta": {"format": ..., "generator_device": "cuda" | "cpu",
-              "accum_grad": int, "steps_per_dispatch": int}}
+              "accum_grad": int, "steps_per_dispatch": int,
+              "layout": [n_data, n_model]}}
 
 so that a resumed run takes exactly the batches, gate draws and dropout
-masks an uninterrupted run would.  Every file is written to a temporary
+masks an uninterrupted run would.  A checkpoint always holds the one-card
+state: a tensor-parallel run gathers its split tensors over the model group
+on the compute stream before the snapshot
+(``parallel.sharding.gather_state_tensors``, passed in as ``tensors``),
+rank 0 writes, and on resume every rank reads the file and takes its own
+block, at any layout (``layout`` is recorded for information only).  Every file is written to a temporary
 name and renamed, so a crash mid-write leaves the previous one whole.
 
 * ``save_train_state`` writes ``ckpts/last.pt`` (the TPU package's
@@ -49,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.sharding import narrow
 from .distill_module import TrainState
 
 FORMAT = "dphubert_torch train state 1"
@@ -96,21 +103,24 @@ def _snapshot(state: TrainState, flats, layout) -> Snapshot:
                     state.generator.get_state(), state.generator.device.type)
 
 
-def host_snapshot(state: TrainState) -> Snapshot:
+def host_snapshot(state: TrainState, tensors: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Snapshot:
     """The state copied to the host, tensor by tensor (the synchronous
-    path: no second copy of the state on the card)."""
-    live = _state_tensors(state)
+    path: no second copy of the state on the card); ``tensors`` replaces
+    the state's own (the one-card tensors of a tensor-parallel state)."""
+    live = _state_tensors(state) if tensors is None else tensors
     flats = [t.reshape(-1).to("cpu", copy=True) for t in live.values()]
     layout = [(name, i, 0, t.shape) for i, (name, t) in enumerate(live.items())]
     return _snapshot(state, flats, layout)
 
 
 @torch.no_grad()
-def device_snapshot(state: TrainState) -> Snapshot:
+def device_snapshot(state: TrainState, tensors: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Snapshot:
     """A copy of the state on its own device: one concatenation per dtype,
     on the current stream, so it holds the state as of this call whatever
-    the steps enqueued after it do."""
-    live = _state_tensors(state)
+    the steps enqueued after it do (``tensors`` as ``host_snapshot``)."""
+    live = _state_tensors(state) if tensors is None else tensors
     groups: Dict[torch.dtype, list] = {}
     for name, t in live.items():
         groups.setdefault(t.dtype, []).append(name)
@@ -160,7 +170,7 @@ def snapshot_to_host(snap: Snapshot, stream: Optional["torch.cuda.Stream"] = Non
 
 
 def _payload(snap: Snapshot, *, epoch: int, batch_in_epoch: int, accum_grad: int,
-             steps_per_dispatch: int) -> dict:
+             steps_per_dispatch: int, layout: Tuple[int, int]) -> dict:
     groups: Dict[str, dict] = {"params": {}, "mu": {}, "nu": {}, "acc": {}}
     for name, t in snap.tensors.items():
         group, key = name.split("/", 1)
@@ -174,18 +184,23 @@ def _payload(snap: Snapshot, *, epoch: int, batch_in_epoch: int, accum_grad: int
         "epoch": int(epoch),
         "batch_in_epoch": int(batch_in_epoch),
         "meta": {"format": FORMAT, "generator_device": snap.generator_device,
-                 "accum_grad": int(accum_grad), "steps_per_dispatch": int(steps_per_dispatch)},
+                 "accum_grad": int(accum_grad), "steps_per_dispatch": int(steps_per_dispatch),
+                 "layout": [int(n) for n in layout]},
     }
 
 
 def save_train_state(path, state, *, epoch: int = 0, batch_in_epoch: int = 0,
-                     accum_grad: int = 1, steps_per_dispatch: int = 1) -> None:
+                     accum_grad: int = 1, steps_per_dispatch: int = 1,
+                     layout: Tuple[int, int] = (1, 1),
+                     tensors: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Write the training state (a ``TrainState``, or a ``Snapshot`` on the
-    host) and the loader position to ``path``."""
+    host) and the loader position to ``path``; ``tensors``: the one-card
+    tensors of a tensor-parallel ``TrainState`` (``host_snapshot``)."""
     path = pathlib.Path(path)
-    snap = state if isinstance(state, Snapshot) else host_snapshot(state)
+    snap = state if isinstance(state, Snapshot) else host_snapshot(state, tensors)
     payload = _payload(snap, epoch=epoch, batch_in_epoch=batch_in_epoch,
-                       accum_grad=accum_grad, steps_per_dispatch=steps_per_dispatch)
+                       accum_grad=accum_grad, steps_per_dispatch=steps_per_dispatch,
+                       layout=layout)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -204,11 +219,14 @@ def check_steps_per_dispatch(meta: dict, source, configured: int) -> None:
             f"run configures {int(configured)}; pass --steps_per_dispatch {recorded}")
 
 
-def _copy_into(dst: dict, src: dict, what: str) -> None:
+def _copy_into(dst: dict, src: dict, what: str, shards: dict) -> None:
+    """Copy the one-card tensors ``src`` into ``dst``; a split tensor takes
+    its block."""
     if set(dst) != set(src):
         raise ValueError(f"{what}: names differ: {sorted(set(dst) ^ set(src))[:8]}")
     for k, t in dst.items():
-        t.copy_(src[k].to(t.device, t.dtype))
+        src_t = narrow(shards[k], src[k]) if k in shards else src[k]
+        t.copy_(src_t.to(t.device, t.dtype))
 
 
 def resolve_checkpoint(path) -> pathlib.Path:
@@ -227,7 +245,9 @@ def load_train_state(path, state: TrainState, *, accum_grad: int = 1,
                      steps_per_dispatch: int = 1) -> Tuple[int, int]:
     """Restore ``path`` (a file, or a directory of rotated checkpoints: its
     newest) into ``state`` in place (parameters, moments, step and
-    generator); returns the loader position (epoch, batch_in_epoch).
+    generator); returns the loader position (epoch, batch_in_epoch).  A
+    tensor-parallel state takes its block of every split tensor, whatever
+    layout wrote the file.
     Raises where the checkpoint cannot continue this run: another format,
     a generator of another device type, another ``accum_grad`` or
     ``steps_per_dispatch``."""
@@ -247,10 +267,10 @@ def load_train_state(path, state: TrainState, *, accum_grad: int = 1,
     check_steps_per_dispatch(meta, path, steps_per_dispatch)
     state.load_params(ckpt["params"])
     opt = state.opt_state
-    _copy_into(opt.mu, ckpt["opt"]["mu"], "Adam first moments")
-    _copy_into(opt.nu, ckpt["opt"]["nu"], "Adam second moments")
+    _copy_into(opt.mu, ckpt["opt"]["mu"], "Adam first moments", state.shards)
+    _copy_into(opt.nu, ckpt["opt"]["nu"], "Adam second moments", state.shards)
     if opt.acc is not None:
-        _copy_into(opt.acc, ckpt["opt"]["acc"], "gradient accumulator")
+        _copy_into(opt.acc, ckpt["opt"]["acc"], "gradient accumulator", state.shards)
     opt.count = int(ckpt["opt"]["count"])
     opt.mini_step = int(ckpt["opt"]["mini_step"])
     state.step = int(ckpt["step"])
@@ -300,20 +320,24 @@ class RotatingCheckpointer:
 
 
 def snapshot_bytes(state) -> int:
-    """The bytes of a device snapshot of ``state`` (a ``TrainState``, or
-    anything iterable of objects with ``nbytes``)."""
+    """The bytes of a device snapshot of ``state`` (a ``TrainState``, a
+    dict of its tensors, or anything iterable of objects with
+    ``nbytes``)."""
     if isinstance(state, TrainState):
-        return sum(t.numel() * t.element_size() for t in _state_tensors(state).values())
+        state = _state_tensors(state)
+    if isinstance(state, dict):
+        return sum(t.numel() * t.element_size() for t in state.values())
     return sum(int(t.nbytes) for t in state)
 
 
-def background_ckpt_fits(state, *, device=None) -> bool:
+def background_ckpt_fits(state, *, device=None, tensors=None) -> bool:
     """Whether the card has room for the background saver's snapshot, one
     more copy of the state while training goes on: its bytes within 15% of
     the card's total memory (``torch.cuda.mem_get_info``), or within 2 GiB
     where the total is not known (the CPU).  ``DPHUBERT_BG_CKPT=1/0``
     overrides the decision; ``DPHUBERT_SYNC_CKPT=1`` (the TPU package's
-    switch) is ``DPHUBERT_BG_CKPT=0``."""
+    switch) is ``DPHUBERT_BG_CKPT=0``.  ``tensors``: the one-card tensors
+    of a tensor-parallel state, which the snapshot holds."""
     force = os.environ.get("DPHUBERT_BG_CKPT")
     if os.environ.get("DPHUBERT_SYNC_CKPT") == "1":
         force = "0"
@@ -325,7 +349,7 @@ def background_ckpt_fits(state, *, device=None) -> bool:
     if device is not None and torch.device(device).type == "cuda":
         total = torch.cuda.mem_get_info(device)[1]
     budget = int(total * BG_CKPT_SHARE) if total else BG_CKPT_CAP_BYTES
-    return snapshot_bytes(state) <= budget
+    return snapshot_bytes(state if tensors is None else tensors) <= budget
 
 
 class BackgroundSaver:
@@ -378,36 +402,39 @@ class BackgroundSaver:
         exc, self._exc = self._exc, None
         return exc
 
-    def _degrade(self, exc: BaseException, when: str, state, kwargs) -> None:
+    def _degrade(self, exc: BaseException, when: str, state, tensors, kwargs) -> None:
         logging.getLogger("dphubert_torch").warning(
             "background checkpoint save failed %s (%s: %s); that step's checkpoint is "
             "lost; saving synchronously for the rest of the run", when, type(exc).__name__, exc)
         self._degraded = True
-        self._save_fn(host_snapshot(state), **kwargs)
+        self._save_fn(host_snapshot(state, tensors), **kwargs)
 
-    def reserve(self, state: TrainState) -> None:
-        """Pin the host buffers a snapshot of ``state`` goes to, now rather
-        than at the first ``submit`` (on the card only)."""
+    def reserve(self, state: TrainState, tensors=None) -> None:
+        """Pin the host buffers a snapshot of ``state`` (of ``tensors``,
+        where given) goes to, now rather than at the first ``submit`` (on
+        the card only)."""
         if state.generator.device.type != "cuda":
             return
         numel: Dict[torch.dtype, int] = {}
-        for t in _state_tensors(state).values():
+        for t in (_state_tensors(state) if tensors is None else tensors).values():
             numel[t.dtype] = numel.get(t.dtype, 0) + t.numel()
         for dtype, n in numel.items():
             _pinned(self._pinned, dtype, n)
 
-    def submit(self, state: TrainState, **kwargs) -> None:
+    def submit(self, state: TrainState, tensors=None, **kwargs) -> None:
+        """Snapshot ``state`` (its ``tensors``, where given: the one-card
+        tensors of a tensor-parallel state) and hand it to the writer."""
         if self._degraded:
-            self._save_fn(host_snapshot(state), **kwargs)
+            self._save_fn(host_snapshot(state, tensors), **kwargs)
             return
         self._slot.acquire()  # wait out a save in flight, if any
         prev = self._take_exc()
         if prev is not None:
             self._slot.release()
-            self._degrade(prev, "in the writer", state, kwargs)
+            self._degrade(prev, "in the writer", state, tensors, kwargs)
             return
         try:
-            snap = device_snapshot(state)
+            snap = device_snapshot(state, tensors)
             ready = None
             if snap.generator_device == "cuda":
                 device = state.generator.device
@@ -417,7 +444,7 @@ class BackgroundSaver:
                 ready.record(torch.cuda.current_stream(device))
         except BaseException as e:  # noqa: BLE001 - degrade, do not end the run
             self._slot.release()
-            self._degrade(e, "taking the device snapshot", state, kwargs)
+            self._degrade(e, "taking the device snapshot", state, tensors, kwargs)
             return
         self._q.put((snap, ready, kwargs))
 

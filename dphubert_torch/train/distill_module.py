@@ -29,12 +29,24 @@ accumulation phase), replayed with each step's scalars (``step_scalars``)
 copied in beside the batch.  ``remat`` with K > 1 is refused on the card:
 ``remat_layer`` sets the generator's state on the host, which a graph
 cannot replay (ROADMAP queue 1).
+
+Parallel (``parallel/``): ``init_train_state(..., mesh=...)`` places the
+state on a (data x model) mesh (``sharding.shard_train_state``: rank 0's
+parameters everywhere, the heads and FFN units split over the model
+group), and ``make_grad_fn`` / ``make_train_step(..., mesh=...)`` average
+the gradients (and the metrics, in the same buffer) over the data group
+between the backward and the optimizer, one flat buffer per dtype: an
+explicit all-reduce, since ``autograd.grad`` fires none of DDP's hooks, and
+one that a K-step CUDA graph captures over NCCL (its communicator is made
+by the key's eager first group, before the capture).  Over gloo on the card
+K > 1 is refused: gloo's collectives cannot be captured.  ``grad_norm`` and
+the clip take the one-card norm (``optim.global_norm``).
 """
 
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -44,6 +56,8 @@ from ..models.gates import has_gates, sample_gates
 from ..models.model import Wav2Vec2Model, resolve_device
 from ..models.size import model_size
 from ..ops import kernel_launches
+from ..parallel.comm import all_reduce_grads
+from ..parallel.sharding import narrow, shard_train_state
 from ..params import flatten_params, unflatten_params
 from .losses import distill_loss_unstacked
 from .optim import DistillOptimizer, OptState, global_norm
@@ -78,7 +92,10 @@ class DistillConfig:
 class TrainState:
     """Everything a step reads and updates in place: the student module,
     the projection and λ parameters, the optimizer state, the micro-step
-    counter and the generator of the gates and dropout (on the device)."""
+    counter and the generator of the gates and dropout (on the device).
+    On a mesh (``mesh``), ``shards`` holds the block of every split
+    parameter, (dim, start, length, full length) by name; the other
+    parameters are whole on every rank."""
 
     student: Wav2Vec2Model
     projs: dict
@@ -86,6 +103,8 @@ class TrainState:
     opt_state: OptState
     step: int
     generator: torch.Generator
+    mesh: Optional[object] = None
+    shards: Dict[str, Tuple[int, int, int, int]] = field(default_factory=dict)
 
     def named_params(self) -> Dict[str, torch.Tensor]:
         """Training parameters by dotted name: ``student.<state-dict key>``,
@@ -99,12 +118,16 @@ class TrainState:
     @torch.no_grad()
     def load_params(self, flat: Dict[str, torch.Tensor]) -> None:
         """Copy parameters in, by the names of ``named_params`` (all of
-        them: e.g. ``params.train_params_from_jax``)."""
+        them: e.g. ``params.train_params_from_jax``), at one-card shapes: a
+        split parameter takes its block."""
         own = self.named_params()
         if set(own) != set(flat):
             raise KeyError(f"parameter names differ: {sorted(set(own) ^ set(flat))[:8]}")
         for name, p in own.items():
-            p.copy_(torch.as_tensor(flat[name]).to(p.device, p.dtype))
+            t = torch.as_tensor(flat[name])
+            if name in self.shards:
+                t = narrow(self.shards[name], t)
+            p.copy_(t.to(p.device, p.dtype))
 
 
 def init_train_state(
@@ -114,13 +137,16 @@ def init_train_state(
     teacher_embed_dim: int,
     seed: int = 0,
     device="cuda",
+    mesh=None,
 ) -> Tuple[TrainState, DistillOptimizer]:
     """A fresh state on ``device`` and its optimizer.
 
     The student is copied (the caller's module, which may share weights
     with the teacher, is left alone); λ1 = λ2 = 0; the projections are
     initialised from ``seed`` (the identity for layer2layer), and the
-    state's generator on the device is seeded from the same seed."""
+    state's generator on the device is seeded from the same seed (so every
+    rank of a mesh draws the same gates and masks).  With a ``mesh`` the
+    state is placed on it (``parallel.sharding.shard_train_state``)."""
     device = resolve_device(device)
     host_gen = torch.Generator().manual_seed(seed)
     student = copy.deepcopy(student).to(device)
@@ -151,6 +177,8 @@ def init_train_state(
     )
     state = TrainState(student, projs, lambdas, None, 0, generator)
     state.opt_state = tx.init(state.named_params())
+    if mesh is not None:
+        shard_train_state(state, mesh, tx)
     return state, tx
 
 
@@ -239,7 +267,13 @@ def _param_tree(state: TrainState) -> dict:
             "projs": state.projs, "lambdas": state.lambdas}
 
 
-def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig):
+def _check_mesh(state: TrainState, mesh) -> None:
+    if state.mesh is not mesh:
+        raise ValueError("the step's mesh is not the state's: pass the mesh the state was "
+                         "initialised on (init_train_state(..., mesh=...))")
+
+
+def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig, mesh=None):
     """``grad_fn(state, batch, *, gate_u=None) -> (metrics, grads)``: the
     loss, its metrics and the gradient of every training parameter (by the
     names of ``TrainState.named_params``), without touching the state: the
@@ -254,11 +288,16 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig):
     the TPU package's draws in); otherwise they come from the state's
     generator.  Gates stay differentiable in ``log_alpha``.  ``target`` is
     the sparsity target as a 0-dim tensor on the device (by default made
-    from ``state.step``)."""
+    from ``state.step``).
+
+    On a ``mesh`` (the state's) ``batch`` holds this data rank's rows; the
+    gradients and the metrics are averaged over the data group, and
+    ``grad_norm`` is the one-card norm of the averaged gradients."""
     original = float(_teacher_numel(teacher))
 
     def grad_fn(state: TrainState, batch, *, gate_u: Optional[dict] = None,
                 target: Optional[torch.Tensor] = None):
+        _check_mesh(state, mesh)
         student = state.student
         params = _param_tree(state)
         if target is None:
@@ -276,14 +315,21 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig):
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(named.items(), grads)}
         metrics = {k: v.detach().clone() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(list(grads.values()))
+        if mesh is not None:
+            reduced = all_reduce_grads({**grads, **{f"metrics/{k}": v for k, v in metrics.items()}},
+                                       mesh.data_group, mesh.n_data)
+            grads = {n: reduced[n] for n in grads}
+            metrics = {k: reduced[f"metrics/{k}"] for k in metrics}
+        split = [n in state.shards for n in grads] if state.shards else None
+        metrics["grad_norm"] = global_norm(list(grads.values()), split,
+                                           None if mesh is None else mesh.model_group)
         return metrics, grads
 
     return grad_fn
 
 
 def make_train_step(teacher: Wav2Vec2Model, cfg: DistillConfig, tx: DistillOptimizer, *,
-                    steps_per_call: int = 1):
+                    steps_per_call: int = 1, mesh=None):
     """The train step ``step(state, batch, *, gate_u=None) -> (state,
     metrics)``: ``make_grad_fn``'s gradients, then one micro-step of ``tx``
     (an update every ``accum_grad`` micro-steps), in place.  Metrics hold
@@ -294,8 +340,9 @@ def make_train_step(teacher: Wav2Vec2Model, cfg: DistillConfig, tx: DistillOptim
     metrics)`` for K micro-steps: ``batch`` is ``(waveforms (K, B, T),
     lengths (K, B) or None)`` and every metric comes back stacked ``(K,)``
     in float32, as the TPU package's multi-step.  On the CPU it runs the K
-    steps eagerly; on the card see ``GraphedSteps``."""
-    grad_fn = make_grad_fn(teacher, cfg)
+    steps eagerly; on the card see ``GraphedSteps``.  ``mesh``: the state's
+    (``make_grad_fn``)."""
+    grad_fn = make_grad_fn(teacher, cfg, mesh)
 
     def one(state: TrainState, batch, scalars: torch.Tensor, gate_u=None):
         metrics, grads = grad_fn(state, batch, gate_u=gate_u, target=scalars[0])
@@ -312,7 +359,17 @@ def make_train_step(teacher: Wav2Vec2Model, cfg: DistillConfig, tx: DistillOptim
         return step
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    return GraphedSteps(one, cfg, tx, steps_per_call)
+    return GraphedSteps(one, cfg, tx, steps_per_call, mesh)
+
+
+def refuse_gloo_graphs(mesh, steps_per_call: int, device) -> None:
+    """Raise for K > 1 on the card over a gloo mesh: gloo's collectives
+    cannot be captured in a CUDA graph (NCCL's can)."""
+    if (steps_per_call > 1 and mesh is not None and torch.device(device).type == "cuda"
+            and mesh.backend() == "gloo"):
+        raise ValueError(
+            "steps_per_dispatch > 1 on the card needs NCCL: a CUDA graph cannot capture gloo's "
+            "collectives; pass --steps_per_dispatch 1 over gloo")
 
 
 def refuse_remat_graphs(cfg: DistillConfig, steps_per_call: int, device) -> None:
@@ -397,8 +454,8 @@ class GraphedSteps:
     def reset_tally(cls) -> None:
         cls.captured, cls.replayed, cls.replays = {}, {}, 0
 
-    def __init__(self, one, cfg: DistillConfig, tx: DistillOptimizer, k: int):
-        self.one, self.cfg, self.tx, self.k = one, cfg, tx, k
+    def __init__(self, one, cfg: DistillConfig, tx: DistillOptimizer, k: int, mesh=None):
+        self.one, self.cfg, self.tx, self.k, self.mesh = one, cfg, tx, k, mesh
         self.graphs: Dict[tuple, _Graph] = {}
         self.names: Optional[Tuple[str, ...]] = None
         self.pool = None
@@ -435,6 +492,7 @@ class GraphedSteps:
             self._run(state, g)
             return state, self._metrics(g.out)
         refuse_remat_graphs(self.cfg, self.k, device)
+        refuse_gloo_graphs(self.mesh, self.k, device)
         key = (tuple(waves.shape), waves.dtype, lengths is None, state.opt_state.mini_step)
         g = self.graphs.get(key)
         if g is None:

@@ -64,9 +64,28 @@ def param_label(name: str) -> str:
     return "main"
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, as a 0-dim fp32 tensor."""
+def _norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def global_norm(tensors: List[torch.Tensor], split: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, as a 0-dim fp32 tensor.
+
+    Under tensor parallelism (``group``, the model group, and ``split``
+    flagging the tensors that hold only this rank's block): the split
+    tensors' squares are summed over the group and the replicated ones
+    counted once, so every rank gets the one-card norm."""
+    if group is None or split is None or not any(split):
+        return _norm(tensors)
+    from ..parallel.comm import sum_over
+
+    part = [t for t, s in zip(tensors, split) if s]
+    sq = sum_over(_norm(part).square(), group)
+    rest = [t for t, s in zip(tensors, split) if not s]
+    if rest:
+        sq = sq + _norm(rest).square()
+    return sq.sqrt()
 
 
 @dataclass
@@ -101,6 +120,18 @@ class DistillOptimizer:
         self.max_updates = max_updates
         self.clip_norm = clip_norm
         self.accum_grad = max(int(accum_grad), 1)
+        self.split_names: frozenset = frozenset()
+        self.norm_group = None
+
+    def shard_norm(self, split_names, group) -> None:
+        """The clip's norm over a tensor-parallel state: the parameters in
+        ``split_names`` hold this rank's block of the model ``group``
+        (``global_norm``)."""
+        self.split_names, self.norm_group = frozenset(split_names), group
+
+    def norm(self, names: List[str], tensors: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the tensors of parameters ``names``."""
+        return global_norm(tensors, [n in self.split_names for n in names], self.norm_group)
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
         missing = sorted({param_label(n) for n in params} - set(self.base_lr))
@@ -174,7 +205,7 @@ class DistillOptimizer:
         names = list(grads)
         g_all = [grads[n].float() for n in names]
         if self.clip_norm and self.clip_norm > 0:
-            norm = global_norm(g_all)
+            norm = self.norm(names, g_all)
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
             torch._foreach_mul_(g_all, scale)

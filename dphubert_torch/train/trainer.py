@@ -1,5 +1,6 @@
-"""Training loop on one card: epochs, the feed, logging, checkpoint/resume,
-validation and the stage export (the TPU package's ``train/trainer.py``).
+"""Training loop: epochs, the feed, logging, checkpoint/resume, validation
+and the stage export (the TPU package's ``train/trainer.py``), on one card
+or on a (data x model) mesh of processes.
 
 ``train`` runs stage 1 (``cfg.use_reg``: gates and the Lagrangian) or the
 final distill (``use_reg=False``, projections warm-started from stage 1) to
@@ -31,8 +32,19 @@ final distill (``use_reg=False``, projections warm-started from stage 1) to
   ("sigterm", "stop_at_step", "rss watchdog", "deadline"), from which the
   CLIs choose their exit codes.
 
-Not ported yet (ROADMAP queue 1): the mesh and its tensor-parallel / FSDP
-layouts (one card here), LayerDrop, and the profiling hooks.
+On a mesh (``train(..., mesh=...)``, ``parallel/``): every rank feeds its
+rows of each global batch (the loader's ``shard``), the step averages the
+gradients over the data group, the audio-seconds logged count the global
+batch, and a stop decided on any rank (SIGTERM, watchdog, deadline) is
+agreed by all at the dispatch boundary (one small all-reduce on the host,
+so no rank enters a collective the others have left).  Rank 0 logs, prints
+the validation loss (every rank runs its rows; the loss is averaged) and
+writes the checkpoints, which hold the one-card state (a tensor-parallel
+run gathers its split tensors first, on every rank); every rank passes a
+barrier once the last one is written.
+
+Not ported yet (ROADMAP queue 1): FSDP / HSDP (item 7b), LayerDrop, and the
+profiling hooks.
 """
 
 from __future__ import annotations
@@ -51,6 +63,8 @@ import torch
 from ..interop.torch_ckpt import save_checkpoint
 from ..models.gates import compile_gates, has_gates
 from ..models.model import Wav2Vec2Model, resolve_device
+from ..parallel.mesh import agree_max, barrier, replicate
+from ..parallel.sharding import gather_full, gather_state_tensors
 from ..params import flatten_params, unflatten_params
 from .checkpointing import (
     BackgroundSaver,
@@ -65,6 +79,7 @@ from .distill_module import (
     init_train_state,
     make_eval_step,
     make_train_step,
+    refuse_gloo_graphs,
     refuse_remat_graphs,
 )
 from .projections import projections_from_state_dict, projections_to_state_dict
@@ -72,6 +87,8 @@ from .projections import projections_from_state_dict, projections_to_state_dict
 SAMPLE_RATE = 16000
 RSS_CHECK_INTERVAL = 100  # steps between two reads of /proc/self/statm
 CKPT_BACKENDS = ("last", "rotated")
+# a stop's reason, by priority: the ranks agree on the largest code
+STOPS = (None, "stop_at_step", "sigterm", "rss watchdog", "deadline")
 
 
 def _memory_budget_bytes() -> int:
@@ -118,10 +135,11 @@ class MetricLogger:
     log_dict every ``log_interval`` steps, distill.py:49).  Metric values
     are read from the card only on the steps that are logged."""
 
-    def __init__(self, exp_dir: pathlib.Path, interval: int = 50):
+    def __init__(self, exp_dir: pathlib.Path, interval: int = 50, enabled: bool = True):
         self.interval = interval
+        self.enabled = enabled  # rank 0 of a mesh logs, the others count
         self.path = exp_dir / "metrics.jsonl"
-        self._f = open(self.path, "a")
+        self._f = open(self.path, "a") if enabled else None
         self._t0 = time.time()
         self._last_step = 0
         self._last_time = self._t0
@@ -129,7 +147,7 @@ class MetricLogger:
 
     def log(self, step: int, metrics: dict, audio_seconds: float = 0.0):
         self._audio_acc += audio_seconds
-        if step % self.interval != 0:
+        if step % self.interval != 0 or not self.enabled:
             return
         now = time.time()
         dt = now - self._last_time
@@ -150,7 +168,8 @@ class MetricLogger:
         print(f"[train] {msg}", flush=True)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def train(
@@ -173,9 +192,13 @@ def train(
     ckpt_backend: str = "last",
     ckpt_keep: int = 3,
     device="cuda",
+    mesh=None,
 ) -> TrainState:
     """Train a copy of ``student`` against the frozen ``teacher`` (a module
     on ``device``) to ``cfg.max_updates`` updates; returns the final state.
+    On a ``mesh`` every rank calls it with the same arguments, except the
+    loaders, which yield this rank's rows; the teacher and the student take
+    rank 0's weights.
 
     ``loader`` and ``valid_loader`` have ``epoch(e, skip=0)`` yielding
     ``(waveforms, lengths)`` numpy batches (``DistillDataLoader``).
@@ -187,13 +210,20 @@ def train(
         raise ValueError(f"ckpt_backend must be one of {CKPT_BACKENDS}, got {ckpt_backend!r}")
     K = max(int(steps_per_dispatch), 1)
     refuse_remat_graphs(cfg, K, device)
+    refuse_gloo_graphs(mesh, K, device)
+    is_main = mesh is None or mesh.is_main
     exp_dir = pathlib.Path(exp_dir)
-    (exp_dir / "ckpts").mkdir(parents=True, exist_ok=True)
+    if is_main:
+        (exp_dir / "ckpts").mkdir(parents=True, exist_ok=True)
     accum = max(cfg.accum_grad, 1)
+    n_data = 1 if mesh is None else mesh.n_data
+    layout = (n_data, 1 if mesh is None else mesh.n_model)
 
+    if mesh is not None:
+        replicate(teacher, mesh)
     state, tx = init_train_state(student=student, cfg=cfg,
                                  teacher_embed_dim=teacher.spec.embed_dim, seed=seed,
-                                 device=device)
+                                 device=device, mesh=mesh)
     if proj_state_dict is not None:
         projs = projections_from_state_dict(proj_state_dict, cfg.distill_mode,
                                             cfg.distill_layer_groups, device=device)
@@ -203,7 +233,8 @@ def train(
 
     rotated = None
     if ckpt_backend == "rotated":
-        rotated = RotatingCheckpointer(exp_dir / "ckpts" / "rotated", keep=ckpt_keep)
+        rotated = RotatingCheckpointer(exp_dir / "ckpts" / "rotated", keep=ckpt_keep,
+                                       create=is_main)
 
     resume_pos = (0, 0)  # (epoch, batches already consumed in that epoch)
     if resume:
@@ -249,9 +280,10 @@ def train(
               "checkpointing and exiting (resumable)", flush=True)
         return True
 
-    logger = MetricLogger(exp_dir, log_interval)
-    step_fn = make_train_step(teacher, cfg, tx)
-    multi_fn = make_train_step(teacher, cfg, tx, steps_per_call=K) if K > 1 else None
+    logger = MetricLogger(exp_dir, log_interval, enabled=is_main)
+    step_fn = make_train_step(teacher, cfg, tx, mesh=mesh)
+    multi_fn = (make_train_step(teacher, cfg, tx, steps_per_call=K, mesh=mesh)
+                if K > 1 else None)
     eval_fn = make_eval_step(teacher, cfg) if valid_loader is not None else None
 
     max_micro_steps = cfg.max_updates * accum
@@ -260,18 +292,25 @@ def train(
     batch_in_epoch = skip
     done = False
     last_val_step = -1
-    # a rotated step is written once: seeded from the directory, so a
-    # resumed run's first save cannot land on a step already on disk
-    last_saved = {"step": -1}
-    if rotated is not None and rotated.latest_step() is not None:
-        last_saved["step"] = rotated.latest_step()
+    # a rotated step is written once: seeded from the directory (rank 0's
+    # reading, agreed by all: every rank must take the same checkpoints), so
+    # a resumed run's first save cannot land on a step already on disk
+    latest = -1
+    if rotated is not None and is_main and rotated.latest_step() is not None:
+        latest = rotated.latest_step()
+    last_saved = {"step": agree_max(latest, mesh)}
     why = None
 
-    def _write_ckpt(snap, *, step, epoch, batch_in_epoch):
+    def _tensors():
+        """The one-card tensors of a tensor-parallel state (a collective:
+        every rank calls it); None where the state is whole."""
+        return gather_state_tensors(state) if state.shards else None
+
+    def _write_ckpt(snap, *, step, epoch, batch_in_epoch, tensors=None):
         """The backend's write of a ``TrainState`` (synchronous path) or a
         host snapshot (background path)."""
         kw = dict(epoch=epoch, batch_in_epoch=batch_in_epoch, accum_grad=accum,
-                  steps_per_dispatch=K)
+                  steps_per_dispatch=K, layout=layout, tensors=tensors)
         if rotated is not None:
             rotated.save(step, snap, **kw)
         else:
@@ -280,29 +319,35 @@ def train(
     saver = None
     # the snapshot is one more copy of the state on the card while training
     # goes on: a state too large for that (or DPHUBERT_SYNC_CKPT=1) stays
-    # synchronous
-    if background_ckpt_fits(state):
+    # synchronous; rank 0 alone writes
+    full = _tensors()
+    if is_main and background_ckpt_fits(state, tensors=full):
         saver = BackgroundSaver(_write_ckpt)
-        saver.reserve(state)
+        saver.reserve(state, full)
         if multi_fn is not None:
             multi_fn.before_capture = saver.wait
-    else:
+    elif is_main:
         logging.getLogger("dphubert_torch").info(
             "background checkpoints off (DPHUBERT_SYNC_CKPT, DPHUBERT_BG_CKPT, or a state "
             "too large for the card's spare memory): saving synchronously")
+
+    del full
 
     def _checkpoint():
         if step == last_saved["step"]:
             return
         last_saved["step"] = step
+        tensors = _tensors()
+        if not is_main:
+            return
         kw = dict(step=step, epoch=epoch, batch_in_epoch=batch_in_epoch)
         if saver is not None:
-            saver.submit(state, **kw)
+            saver.submit(state, tensors, **kw)
         else:
-            _write_ckpt(state, **kw)
+            _write_ckpt(state, tensors=tensors, **kw)
 
     def _validate():
-        _run_validation(eval_fn, state, valid_loader, step)
+        _run_validation(eval_fn, state, valid_loader, step, mesh)
 
     def _log_dispatch(prev_step: int, n: int, metrics: dict, audio_sec: float):
         """Log each micro-step of an n-step dispatch; stacked metrics are
@@ -312,7 +357,8 @@ def train(
             metrics["updates"] = (prev_step + 1) // accum
             logger.log(prev_step + 1, metrics, audio_seconds=audio_sec)
             return
-        need = any((prev_step + 1 + j) % logger.interval == 0 for j in range(n))
+        need = logger.enabled and any((prev_step + 1 + j) % logger.interval == 0
+                                      for j in range(n))
         rows = None
         if need:
             names = list(metrics)
@@ -331,6 +377,7 @@ def train(
             groups = _group_iter(_epoch_iter(loader, epoch, skip), K,
                                  lambda: max_micro_steps - step)
             for wave, lengths, audio_sec in _device_prefetch(groups, device):
+                audio_sec *= n_data  # the global batch's
                 n = wave.shape[0] if wave.dim() == 3 else 1
                 if n > 1 and step + n > max_micro_steps:
                     # the grouper's remaining() guard ran one dispatch early
@@ -372,6 +419,8 @@ def train(
                     why = "rss watchdog"
                 elif deadline_ts and time.time() >= deadline_ts:
                     why = "deadline"
+                if mesh is not None:
+                    why = STOPS[agree_max(STOPS.index(why), mesh)]
                 if why:
                     _checkpoint()
                     print(f"[train] preempted ({why}): checkpointed at step {step}, "
@@ -411,7 +460,9 @@ def train(
                 logging.getLogger("dphubert_torch").warning(
                     "final background checkpoint save failed (%s: %s); rewriting "
                     "synchronously", type(err).__name__, err)
-                _write_ckpt(state, step=step, epoch=epoch, batch_in_epoch=batch_in_epoch)
+                _write_ckpt(state, step=step, epoch=epoch, batch_in_epoch=batch_in_epoch,
+                            tensors=_tensors())
+        barrier(mesh)  # the last checkpoint is on disk for every rank
     finally:
         if saver is not None:  # an exception ended the run
             saver.close()
@@ -494,27 +545,47 @@ def _epoch_iter(loader, epoch: int, skip: int):
         return it
 
 
-def _run_validation(eval_fn, state: TrainState, valid_loader, step: int) -> None:
+def _run_validation(eval_fn, state: TrainState, valid_loader, step: int, mesh=None) -> None:
     """Mean validation loss with the compiled eval gates, read from the
-    card once at the end."""
+    card once at the end; on a mesh every rank runs its rows, the mean is
+    averaged over the data group and rank 0 prints it."""
     gates = None
     if has_gates(state.student.spec):
         gates = compile_gates(state.student.spec,
                               unflatten_params(dict(state.student.named_parameters())))
     losses = [eval_fn(state, (wave, lengths), gates)["loss"]
               for wave, lengths in valid_loader.epoch(0)]
+    if mesh is not None and not mesh.is_main:
+        if losses:
+            _data_mean(torch.stack(losses).float().mean(), mesh)
+        return
     if losses:
-        mean = torch.stack(losses).float().mean().item()
+        mean = _data_mean(torch.stack(losses).float().mean(), mesh).item()
         print(f"[valid] step={step} loss={mean:.4f} ({len(losses)} batches)", flush=True)
     else:
         print(f"[valid] step={step} skipped: validation set too small "
               "to fill one batch", flush=True)
 
 
+def _data_mean(value: torch.Tensor, mesh) -> torch.Tensor:
+    """A 0-dim tensor averaged over the mesh's data group."""
+    if mesh is None or mesh.n_data == 1:
+        return value
+    from ..parallel.comm import sum_over
+
+    return sum_over(value, mesh.data_group) / mesh.n_data
+
+
 def export_student_checkpoint(state: TrainState, cfg: DistillConfig, path) -> None:
     """Write the stage output as a portable ``{config, state_dict,
     distill_linear_projs}`` checkpoint, the input of the prune and export
-    CLIs (and of the reference's tooling, through the .pth format)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state.student.state_dict().items()}
+    CLIs (and of the reference's tooling, through the .pth format).  On a
+    mesh every rank calls it (a tensor-parallel student is gathered first)
+    and rank 0 writes."""
+    full = gather_full(state)
+    if state.mesh is not None and not state.mesh.is_main:
+        return
+    sd = {k[len("student."):]: v.cpu().numpy() for k, v in full.items()
+          if k.startswith("student.")}
     projs = projections_to_state_dict(state.projs, cfg.distill_mode, cfg.distill_layer_groups)
     save_checkpoint(path, state.student.config, sd, projs)

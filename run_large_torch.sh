@@ -13,6 +13,7 @@
 # Without remat the default is run_torch.sh's STEPS_PER_DISPATCH=4: all 12
 # batch shapes at 180 s a batch captured as 4-step graphs fit on an H100
 # 80GB (chip_smoke.py phase "graph_keys", PERF.md section 5).
+# NPROC=n runs each training stage on n processes (run_torch.sh).
 set -euo pipefail
 
 export TEACHER_CKPT=${TEACHER_CKPT:-pretrained/wav2vec2-large.hf.pth}

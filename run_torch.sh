@@ -12,6 +12,12 @@
 # dispatch, one CUDA graph of K steps on the card) and CKPT_BACKEND
 # (default rotated: ckpts/rotated/step_<n>.pt, the newest three kept;
 # last: ckpts/last.pt), both written by a background thread.
+# NPROC=n (default 1) runs each training stage on n processes, one per card,
+# under `python -m torch.distributed.run --standalone --nproc_per_node n`:
+# data parallel (SECONDS_PER_BATCH stays per card); with DEVICE=cpu over
+# gloo.  torchrun exits 1 whatever its ranks exit with, so a stage's own
+# exit code (75, 76) is read from the <stage>/exit_code file its rank 0
+# writes.
 # Not passed: --rng_impl (the TPU's generator choice; the port draws from
 # torch generators) and --scan_layers (it shrank the TPU package's compiled
 # Large program and has no counterpart in eager PyTorch).
@@ -36,6 +42,11 @@ num_shapes=${NUM_SHAPES:-12}                  # static length-bucket ladder
 log_interval=${LOG_INTERVAL:-50}
 ckpt_interval=${CKPT_INTERVAL:-1000}
 device=${DEVICE:-cuda}
+nproc=${NPROC:-1}
+launch=(python -m)
+if [ "$nproc" -gt 1 ]; then
+  launch=(python -m torch.distributed.run --standalone --nproc_per_node "$nproc" -m)
+fi
 
 extra_flags=()
 [ "${REMAT:-0}" = 1 ] && extra_flags+=(--remat)
@@ -65,7 +76,8 @@ mkdir -p "$root_dir"
 # impending OOM kill into a clean checkpoint) exits 75: resume it from its
 # own checkpoint until it completes; any other failure aborts.
 # $resume_from must match the stage's --ckpt_backend: last.pt for last, the
-# ckpts/rotated directory for rotated (the trainer takes its newest step).
+# ckpts/rotated directory for rotated (the trainer takes its newest step);
+# $stage_dir is the stage's --exp_dir (its exit_code file under torchrun).
 resume_path() {  # $1 = stage dir
   if [ "$ckpt_backend" = rotated ]; then
     echo "$1/ckpts/rotated"
@@ -79,8 +91,12 @@ retry_resumable() {
   while :; do
     resume_args=()
     [ $attempt -gt 0 ] && resume_args=(--resume_checkpoint "$resume_from")
+    rm -f "$stage_dir/exit_code"
     "$@" "${resume_args[@]}"
     rc=${PIPESTATUS[0]:-$?}
+    if [ "$rc" -ne 0 ] && [ -f "$stage_dir/exit_code" ]; then
+      rc=$(cat "$stage_dir/exit_code")
+    fi
     [ "$rc" -eq 0 ] && return 0
     [ "$rc" -ne 75 ] && return "$rc"
     attempt=$((attempt + 1))
@@ -90,8 +106,9 @@ retry_resumable() {
 
 echo "[run_torch.sh] $(date -Is) stage 1 (distill) start"
 # ---- stage 1: joint distillation + structured pruning ----
-resume_from=$(resume_path "$root_dir/stage1")
-retry_resumable python -m dphubert_torch.cli.distill \
+stage_dir="$root_dir/stage1"
+resume_from=$(resume_path "$stage_dir")
+retry_resumable "${launch[@]}" dphubert_torch.cli.distill \
   --tsv_dir "$tsv_dir" --train_subset "$train_subset" \
   --seconds_per_batch "$seconds_per_batch" \
   --exp_dir "$root_dir/stage1" \
@@ -117,8 +134,9 @@ python -m dphubert_torch.cli.prune \
 
 echo "[run_torch.sh] $(date -Is) stage 2 (final_distill) start"
 # ---- stage 2: final distillation of the pruned student ----
-resume_from=$(resume_path "$root_dir/stage2")
-retry_resumable python -m dphubert_torch.cli.final_distill \
+stage_dir="$root_dir/stage2"
+resume_from=$(resume_path "$stage_dir")
+retry_resumable "${launch[@]}" dphubert_torch.cli.final_distill \
   --tsv_dir "$tsv_dir" --train_subset "$train_subset" \
   --seconds_per_batch "$seconds_per_batch" \
   --exp_dir "$root_dir/stage2" \

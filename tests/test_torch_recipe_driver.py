@@ -201,3 +201,26 @@ def test_rss_limit_defaults_to_085_of_the_memory_budget(monkeypatch):
     assert budget > 0
     assert trainer.rss_limit_bytes() == int(budget * 0.85)
     assert 0 < trainer._rss_bytes() < budget
+
+
+def test_run_torch_sh_on_two_processes(corpus, teacher_ckpt, tmp_path):
+    """``NPROC=2 DEVICE=cpu``: both training stages under torchrun on two
+    gloo processes (data parallel, ``SECONDS_PER_BATCH`` each rank's
+    share); the recipe ends in a checkpoint that serves, rank 0 alone logs
+    (one metrics row a step), and the stages' checkpoints hold the
+    one-card state with the (2, 1) layout recorded."""
+    _, tsv = corpus
+    exp = tmp_path / "exp"
+    proc = _run_torch_sh(tsv, teacher_ckpt, exp, tmp_path, NPROC="2")
+    assert f"Done: {exp}/dphubert.pth" in proc.stdout
+    model = model_from_checkpoint(load_checkpoint(exp / "dphubert.pth"), device="cpu")
+    with torch.inference_mode():
+        outs, _ = model.extract_features(torch.zeros(1, 32000))
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    for stage, steps in (("stage1", 3), ("stage2", 2)):
+        rows = (exp / stage / "metrics.jsonl").read_text().splitlines()
+        assert len(rows) == steps, (stage, rows)
+        ckpt = torch.load(exp / stage / "ckpts" / "rotated" / f"step_{steps}.pt",
+                          weights_only=True)
+        assert ckpt["meta"]["layout"] == [2, 1]
+        assert not (exp / stage / "exit_code").exists()

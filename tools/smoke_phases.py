@@ -3,6 +3,7 @@
 how deterministic the distill step is.
 
     python3 tools/smoke_phases.py [determinism] [train] [final] [wavlm] [large] [ckpt] [pipeline]
+                                  [parallel]
 
 The kernels are built first (phase "card"); then, in the order given:
 
@@ -18,7 +19,9 @@ The kernels are built first (phase "card"); then, in the order given:
   wav2vec 2.0 Large converted from fairseq names, with its "graph_keys");
 * ``ckpt``: the smoke's checkpoint phase (without the Large state's
   decision);
-* ``pipeline``: the recipe through the CLIs.
+* ``pipeline``: the recipe through the CLIs;
+* ``parallel``: the smoke's "dp_nccl_world1" and "parallel_card" phases
+  (one NCCL rank as a mesh; two gloo ranks on the card).
 
 Each phase prints the smoke's JSON lines; a failed check raises.  Needs a
 CUDA card.
@@ -80,6 +83,13 @@ def determinism(family: str) -> None:
     torch.cuda.empty_cache()
 
 
+def torch_spec():
+    """HuBERT Base's spec (the smoke's stage-1 shapes)."""
+    import dphubert_torch as pt
+
+    return pt.hubert_base(device="cpu").spec
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("smoke_phases: needs a CUDA card", file=sys.stderr)
@@ -106,6 +116,9 @@ def main(argv) -> int:
             cs.phase_ckpt({"bytes": None, "fits": None})
         elif name == "pipeline":
             cs.phase_pipeline()
+        elif name == "parallel":
+            cs.phase_dp_nccl_world1()
+            cs.phase_parallel_card(torch_spec())
         else:
             raise SystemExit(f"unknown phase {name!r}")
     print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
