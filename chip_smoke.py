@@ -48,18 +48,19 @@ full width with random weights from seeds:
   ``--steps_per_dispatch 4``): from the same state and generator, two
   replays equal 8 eager steps bit for bit (parameters, moments, counters,
   generator, metrics), both timed in one process, with peak memory
-  (phase "graph_train"); on the recipes' ladders of 12 batch shapes
-  (stage 1 at 160 s a batch, Large at 180 s) every key captured into the
-  one shared pool and replayed in turn, with peak and reserved memory
-  against eager's, and two keys interleaved bit for bit eager (phase
-  "graph_keys"); stage 1 through the CLI on two shapes with 4 groups
+  (phase "graph_train"); on the recipes' ladders (stage 1's 12 batch
+  shapes at 160 s a batch; the first, middle and top of Large's 12 at 180
+  s, for the smoke's time) every key captured into the one shared pool
+  and replayed in turn, with peak and reserved memory against eager's,
+  and two keys interleaved bit for bit eager (phase "graph_keys"); stage
+  1 through the CLI on two shapes with 4 groups
   (phase "pipeline_graphs").  Launches count what ran: the wrappers'
   counts, less their counts at captures, plus every counted replay's
   captured launches (``GraphedSteps``'s tally); every kernel entry ran
   inside a replayed graph on at least one path;
 * the checkpoint path on the stage-1 state (phase "ckpt"): the synchronous
   write, the background saver's stall and the steps beside its copy and
-  its write over 15 saves, rotation, a resume from a background-written
+  its write over 7 saves, rotation, a resume from a background-written
   file bit for bit, and the size gate's decision for the Base and the
   Large state.  The pipelines run with ``--steps_per_dispatch 4
   --ckpt_backend rotated``, ``run_torch.sh``'s defaults;
@@ -67,14 +68,22 @@ full width with random weights from seeds:
   runs the stage-1 step with its gradient all-reduce, eager and as a
   4-step CUDA graph with the all-reduce captured, bit for bit the
   mesh-less step (phase "dp_nccl_world1", with both step times and the
-  bytes all-reduced a step); two processes on the card over gloo (this
-  script with ``--parallel-rank``; NCCL refuses two ranks on one card) run
-  the same step at full width in the (1 data x 2 model) and (2 data x 1
-  model) layouts, held against the one-process step (loss 1e-3, gradient
-  norm 1e-3, cosines 0.9999), with each rank's launches and peak memory (phase
-  "parallel_card"); the packed kernels at the split step's 6 heads, (16,
-  749, 6, 64), against their plain versions (the kernels line's ``tp``
-  rows).  NCCL across cards is not run: the machine has one card.
+  bytes all-reduced a step); then the same rank with every leaf FSDP
+  splits at 2 ranks placed as a block of its data group (all-gathered
+  where read, its gradient reduce-scattered, kept out of the all-reduce,
+  its norm summed over the group), 12 eager steps and the 4-step graph's
+  calls bit for bit those; processes on the card over gloo (this script
+  with ``--parallel-rank``; NCCL refuses two ranks on one card) run the
+  same step at full width, every rank held against the one-process step
+  (loss 1e-3, gradient norm 1e-3, cosines 0.9999), with its step time,
+  launches, peak and reserved memory: two in the (1 data x 2 model) and
+  (2 data x 1 model) layouts (phase "parallel_card"), in (2 x 1) with
+  FSDP and, for DPWavLM Base, in (1 x 2), and four in (2 x 2) with HSDP
+  (phase "fsdp_card", with the elements each rank keeps of the split
+  leaves); the packed kernels and the seven WavLM entries at the split
+  step's 6 heads, (16, 749, 6, 64) (WavLM's with those heads' 6 bias
+  rows), against their plain versions (the kernels line's ``tp`` rows).
+  NCCL across cards is not run: the machine has one card.
 
 Every kernel (six attention kernels for wav2vec 2.0 / HuBERT, seven for
 WavLM's gated-bias attention) is held against its plain PyTorch version on
@@ -908,7 +917,7 @@ def _rel_row(pairs, dtype, what):
             "tolerance": f"{REL_TOL[dtype]} x max |plain|"}
 
 
-def phase_wavlm_kernels(spec) -> dict:
+def phase_wavlm_kernels(spec, cases=None) -> dict:
     """The seven WavLM entries against their plain versions, on (B, H, L,
     D) views of a fused QKV tensor (the model's strides) with an fp32 bias
     (H, L, L) and gate (B, H, L): the DPWavLM step's shape with dropout 0.1
@@ -925,13 +934,16 @@ def phase_wavlm_kernels(spec) -> dict:
     backward's dq, dgate, di, dbias, dk and dv equal the single route's bit
     for bit (the same bodies), and every backward entry's rerun must give
     the same bits.  Then the dropout mask is read out of both routes'
-    backward entries and of both forward entries through both bodies."""
+    backward entries and of both forward entries through both bodies.
+    ``cases`` (label, B, L, H, lengths, backward) replaces the cases, in
+    bf16 and without the readouts: "tp2", the tensor-parallel step's 6
+    heads, runs every entry, as "train" does."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(12)
     D = 64
     scale = D ** -0.5
     seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
-    for label, B, L, H, lengths, backward in _wavlm_cases(spec):
+    for label, B, L, H, lengths, backward in cases or _wavlm_cases(spec):
         dtypes = ((torch.float32, torch.bfloat16) if label in ("train", "serve_batch1",
                                                                "serve_batch2")
                   else (torch.bfloat16,))
@@ -948,7 +960,8 @@ def phase_wavlm_kernels(spec) -> dict:
             if lengths is not None:
                 mask = mask.masked_fill(~key_mask(lengths, L), NEG_INF_MASK)
             mask = mask.to(dtype)
-            common = {"path": "wavlm_serve" if not backward else "wavlm_train", "case": label,
+            path = "fsdp_card" if label == "tp2" else "wavlm_train" if backward else "wavlm_serve"
+            common = {"path": path, "case": label,
                       "dtype": dtype_name(dtype), "shape_BHLD": [B, H, L, D],
                       "lengths": None if lengths is None else lengths.tolist(), "dropout": rate}
             with torch.no_grad():
@@ -1012,7 +1025,7 @@ def phase_wavlm_kernels(spec) -> dict:
                  call(wavlm_attention_bwd_dkv, di)),
             )
             general = {}
-            if label == "train":
+            if label in ("train", "tp2"):
                 # the general route's entries on the same inputs: against the
                 # plain versions, and (fp32) against the single entries
                 with torch.no_grad():
@@ -1088,6 +1101,8 @@ def phase_wavlm_kernels(spec) -> dict:
             del qkv, dout, bias, gate, mask, out, m, l, want, dq, dk, dv, dgate, dbias, di
             del wq, wk, wv, wbias, wgate, general, entries
             torch.cuda.empty_cache()
+    if cases is not None:
+        return results
     phase_mask_readout("wavlm", "wavlm_train")
     phase_mask_readout("wavlm", "wavlm_general_train", route="general")
     phase_forward_mask_readout("wavlm", "wavlm_train")
@@ -1742,10 +1757,10 @@ def rung_ladder(seconds_per_batch: float):
 
 
 def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
-                     embed_dim: int = 768, interleaved: bool = True) -> dict:
+                     embed_dim: int = 768, interleaved: bool = True, rungs=None) -> dict:
     """Many keys in the one shared pool of ``GraphedSteps``, at full width,
     on the loader's ladder at ``seconds_per_batch`` (the recipe's 12
-    shapes; dropout on, bf16).
+    shapes, or the rungs of it that ``rungs`` indexes; dropout on, bf16).
 
     ``interleaved`` (``deterministic``): two keys, the top rung and a
     short one, called A B A B A B (each key's first group eager and
@@ -1760,6 +1775,9 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
     allocator's cache is emptied (the graphs' pool and the live state).
     Launches: every step run, eager or replayed, exactly its rung's."""
     ladder = rung_ladder(seconds_per_batch)
+    full_ladder = len(ladder)
+    if rungs is not None:
+        ladder = [ladder[i] for i in rungs]
     per_rung = {}
     for B, T in ladder:
         L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
@@ -1785,7 +1803,8 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
 
     reset_launch_counts()
     row = {"phase": "graph_keys", "path": label, "k": GRAPH_K, "dtype": cfg.compute_dtype,
-           "seconds_per_batch": seconds_per_batch, "ladder": ladder}
+           "seconds_per_batch": seconds_per_batch, "ladder": ladder,
+           "rungs_of_ladder": f"{len(ladder)} of {full_ladder}"}
     if interleaved:
         keys = [ladder[-1], ladder[len(ladder) // 2]]
         with deterministic():
@@ -1867,21 +1886,22 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
     return row
 
 
-CKPT_SAVES = 15  # timed background saves (and one more for the resume)
+CKPT_SAVES = 7  # timed background saves (and one more for the resume)
+LARGE_LADDER_RUNGS = (0, 6, 11)  # of run_large_torch.sh's 12: first, middle, top
 
 
 def phase_ckpt(large: dict) -> dict:
     """The checkpoint path on the HuBERT Base stage-1 state (bf16 step at B
     = 16 x 15 s, dropout on), timed under cuDNN's default algorithms, as
-    the trainer runs: the synchronous ``last.pt`` write; then 15
+    the trainer runs: the synchronous ``last.pt`` write; then 7
     background saves, each after one step alone (no save in flight):
     ``submit``'s host time (the device snapshot), the step right after it
     with only the pinned copy on the side stream beside it (the writer
     holds the write until that step ends), and the steps while the file is
-    written.  Between the 8th and the 9th, under deterministic algorithms
+    written.  Between the 4th and the 5th, under deterministic algorithms
     (``deterministic``), a fresh state resumed from a background-written
     file and stepped 2 steps must equal the live run bit for bit.
-    Rotation under ``keep`` = 3 over the 16 saves; ``background_ckpt_fits``
+    Rotation under ``keep`` = 3 over the 8 saves; ``background_ckpt_fits``
     for this state and for the Large one (``large``, from
     ``phase_large_train``)."""
     ck_dir = REPO / "build" / "smoke_ckpt"
@@ -2546,13 +2566,15 @@ def phase_large_train(converted) -> dict:
     del batch
     torch.cuda.empty_cache()
     # run_large_torch.sh's default: K = 4 graphs without remat, on its
-    # ladder at 180 s a batch
+    # ladder at 180 s a batch: its first, middle and top rungs (the smoke's
+    # time; every rung holds about 180 s of audio, so each costs alike)
     cfg, per_step, peak = plain
     graph = {"graph_large_train": phase_graph_train(
         "graph_large_train", teacher, student, cfg, 25, (LARGE_B, T), per_step,
         LARGE_B * TRAIN_SECONDS, peak, embed_dim=1024)}
     graph["graph_keys_large"] = phase_graph_keys("graph_keys_large", teacher, student, cfg, 25,
-                                                 180, embed_dim=1024, interleaved=False)
+                                                 180, embed_dim=1024, interleaved=False,
+                                                 rungs=LARGE_LADDER_RUNGS)
     del teacher, student
     torch.cuda.empty_cache()
     return {"launches": total, **runs, "ckpt": ckpt, "graph": graph}
@@ -2705,7 +2727,41 @@ def phase_dp_nccl_world1() -> dict:
                 same_metrics(m, want_m[call], f"mesh graph call {call}")
                 same_snapshot(device_snapshot(c), want_s[call], f"mesh graph call {call}")
             check(GraphedSteps.replays == 2, f"{GraphedSteps.replays} replays")
-            del c, tx_c, group, want_s
+            del c, tx_c, group
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the FSDP path on the world-1 data group (``mark_world1``):
+            # every leaf the rule splits at 2 data ranks all-gathered where
+            # it is read and its gradient reduce-scattered, the student's
+            # kept out of the all-reduce and their squares summed over the
+            # data group; 12 eager steps (the first step's loss the
+            # mesh-less one's bits), then the 4-step graph's 3 calls bit
+            # for bit those steps
+            def fsdp_fresh():
+                state, tx = fresh(mesh)
+                f_teacher = copy.deepcopy(teacher)
+                return state, tx, f_teacher, mark_world1(state, tx, f_teacher, mesh)
+
+            e, tx_e, e_teacher, fsdp_marked = fsdp_fresh()
+            e_step = make_train_step(e_teacher, cfg, tx_e, mesh=mesh)
+            fsdp_m, fsdp_s = [], []
+            for _ in range(3):
+                e, m = eager_group(e_step, e)
+                fsdp_m.append(m)
+                fsdp_s.append(device_snapshot(e))
+            check(torch.equal(fsdp_m[0]["loss"][0], want_m[0]["loss"][0]),
+                  f"FSDP first step's loss {fsdp_m[0]['loss'][0].item()} vs "
+                  f"{want_m[0]['loss'][0].item()}")
+            del e, tx_e, e_teacher, e_step, want_s
+            f, tx_f, f_teacher, _ = fsdp_fresh()
+            f_group = make_train_step(f_teacher, cfg, tx_f, steps_per_call=GRAPH_K, mesh=mesh)
+            for call in range(3):
+                f, m = f_group(f, (stack, None))
+                ran += GRAPH_K
+                same_metrics(m, fsdp_m[call], f"FSDP graph call {call}")
+                same_snapshot(device_snapshot(f), fsdp_s[call], f"FSDP graph call {call}")
+            check(GraphedSteps.replays == 4, f"{GraphedSteps.replays} replays")
+            del f, tx_f, f_teacher, f_group, fsdp_s
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -2740,6 +2796,10 @@ def phase_dp_nccl_world1() -> dict:
                "bit_exact": {"eager_steps": GRAPH_K, "graph_calls": 3, "graph_replays": 2,
                              "tensors_compared": n_tensors,
                              "metrics_compared": sorted(want_m[0])},
+               "fsdp_bit_exact": {"eager_steps": 3 * GRAPH_K, "graph_calls": 3,
+                                  "graph_replays": 2, "leaves_split": fsdp_marked,
+                                  "against": "the same placement's eager steps; the first "
+                                             "step's loss the mesh-less one's"},
                "allreduced_bytes_per_step": reduced_bytes,
                "eager_step_s": eager_s, "eager_segments_s": eager_seg,
                "graph_step_s": graph_s, "graph_segments_s": graph_seg,
@@ -2759,23 +2819,101 @@ def phase_dp_nccl_world1() -> dict:
         multihost.shutdown()
 
 
+def mark_world1(state, tx, teacher, mesh) -> dict:
+    """Place ``state`` and ``teacher`` on the world-1 ``mesh`` as FSDP
+    splits them over 2 data ranks: every leaf the rule splits at 2 ranks
+    (the λs stay whole, as ``shard_train_state`` keeps them) is marked as a
+    block of the data group (``fsdp.mark``; at world size 1 the whole
+    tensor), and each of the state's is recorded as a ``Block`` with that
+    ``data_dim`` in ``state.shards`` and in the clip's groups: the step
+    all-gathers it where it is read, reduce-scatters its gradient, keeps it
+    out of the all-reduce and sums its squares over the data group
+    (``make_grad_fn``'s FSDP branch).  Returns the leaves so placed."""
+    from dphubert_torch.parallel.fsdp import fsdp_dim, mark
+    from dphubert_torch.parallel.sharding import Block
+
+    n = {"state": 0, "teacher": 0}
+    for name, p in state.named_params().items():
+        dim = None if name.startswith("lambdas.") else fsdp_dim(p.shape, 2)
+        if dim is not None:
+            state.shards[name] = Block(tuple(p.shape), data_dim=dim, data_rank=mesh.data_rank,
+                                       n_data=mesh.n_data)
+            mark(p, dim, mesh)
+            n["state"] += 1
+    tx.shard_norm({name: b.groups(mesh) for name, b in state.shards.items()})
+    for p in teacher.parameters():
+        dim = fsdp_dim(p.shape, 2)
+        if dim is not None:
+            mark(p, dim, mesh)
+            n["teacher"] += 1
+    return n
+
+
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
 
 
-def parallel_card_job(payload: dict, first) -> dict:
-    """The job of the two ranks of phase "parallel_card" (this script with
-    ``--parallel-rank``, ``dphubert_torch.parallel.dryrun``'s rank
-    harness): gloo on the one card, ``first`` the (1 x 2) mesh.  Rank 0
-    first takes the one-process bf16 gradient of the step (the reference);
-    then, for each layout, both ranks place a fresh state from the same
-    seed on the mesh, run the step's forward and backward on their rows
-    (the gradient average included), gather the split gradients and, on
-    rank 0, hold the loss and the gradients against the reference; then one
-    whole step (``make_train_step``) timed, its launches counted, and the
-    teacher's forward alone counted.  Returns this rank's rows."""
+# (label, family, (n_data, n_model), fsdp, path) of phase "parallel_card",
+# by the size of the process group that runs them; ``path`` is the row (and
+# the launch count) a layout belongs to: "parallel_card" for data and
+# tensor parallelism, "fsdp_card" for FSDP, HSDP and DPWavLM under TP
+CARD_LAYOUTS = {2: (("1x2", "hubert", (1, 2), False, "parallel_card"),
+                    ("2x1", "hubert", (2, 1), False, "parallel_card"),
+                    ("fsdp_2x1", "hubert", (2, 1), True, "fsdp_card"),
+                    ("wavlm_tp_1x2", "wavlm", (1, 2), False, "fsdp_card")),
+                4: (("hsdp_2x2", "hubert", (2, 2), True, "fsdp_card"),)}
+CARD_PATHS = ("parallel_card", "fsdp_card")
+
+
+def _one_process_reference(family: str, batch, first) -> tuple:
+    """Rank 0's one-process bf16 loss and gradients of the step (the same
+    seeds as the ranks' states), broadcast to every rank of the group as
+    one flat fp32 buffer, so every rank holds it alike; (loss, {name:
+    gradient})."""
     import torch.distributed as dist
 
+    teacher, student = distill_models("cuda", family)
+    cfg = DistillConfig(compute_dtype="bfloat16")
+    state, _ = init_train_state(student=student, cfg=cfg,
+                                teacher_embed_dim=teacher.spec.embed_dim, seed=34, device="cuda")
+    shapes = {n: p.shape for n, p in state.named_params().items()}
+    flat = torch.empty(1 + sum(int(np.prod(v)) for v in shapes.values()), device="cuda")
+    if first.rank == 0:
+        metrics, grads = make_grad_fn(teacher, cfg)(state, (batch, None))
+        flat = torch.cat([metrics["loss"].float().reshape(1)]
+                         + [grads[n].float().flatten() for n in shapes])
+        del metrics, grads
+    del state, teacher, student
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.broadcast(flat, src=0)
+    out, at = {}, 1
+    for n, shape in shapes.items():
+        k = int(np.prod(shape))
+        out[n] = flat[at:at + k].view(shape)
+        at += k
+    return flat[0].item(), out
+
+
+def parallel_card_job(payload: dict, first) -> dict:
+    """The job of the ranks of phase "parallel_card" (this script with
+    ``--parallel-rank``, ``dphubert_torch.parallel.dryrun``'s rank
+    harness): gloo on the one card, ``first`` the group's mesh.  For each
+    layout of ``CARD_LAYOUTS`` for this group, in turn: every rank holds
+    the one-process bf16 gradient of its family's step (rank 0 takes it,
+    ``_one_process_reference``); every rank places a fresh state from the
+    same seed on the layout's mesh (with ``fsdp``: split over the data
+    group, the teacher too, ``fsdp.shard_module``), runs the step's forward
+    and backward on its rows and heads (the gradient average included),
+    gathers the gradients to one-card shapes and holds the loss, the
+    cosines and the norm against the reference; then one whole step
+    (``make_train_step``) timed, its launches counted, the teacher's
+    forward alone counted, peak and reserved memory from the placement on,
+    and, with ``fsdp``, the elements it keeps of the split leaves.  Returns
+    this rank's rows by layout."""
+    import torch.distributed as dist
+
+    from dphubert_torch.parallel.fsdp import shard_module
     from dphubert_torch.parallel.mesh import create_mesh
     from dphubert_torch.parallel.multihost import process_row_slice
     from dphubert_torch.parallel.sharding import gather_tensor
@@ -2783,69 +2921,79 @@ def parallel_card_job(payload: dict, first) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = first.rank
-    out = {"rank": rank}
-    teacher, student = distill_models("cuda")
-    cfg = DistillConfig(compute_dtype="bfloat16")
+    out = {"rank": rank, "layouts": {}}
     T = int(TRAIN_SECONDS * SR)
     gen = torch.Generator(device="cuda").manual_seed(33)
     batch = torch.randn(TRAIN_B, T, device="cuda", generator=gen)
-    ref = None
-    if rank == 0:
-        state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768, seed=34,
-                                    device="cuda")
-        metrics, grads = make_grad_fn(teacher, cfg)(state, (batch, None))
-        ref = (metrics["loss"].item(), {n: g.detach().clone() for n, g in grads.items()})
-        del state, metrics, grads
+    meshes = {(first.n_data, first.n_model): first}
+    ref_family, ref = None, None
+    for label, family, (n_data, n_model), fsdp, path in CARD_LAYOUTS[first.world]:
+        if family != ref_family:  # the previous family's reference freed first
+            ref = g_ref = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref, ref_family = _one_process_reference(family, batch, first), family
+        loss_ref, g_ref = ref
+        if (n_data, n_model) not in meshes:
+            meshes[(n_data, n_model)] = create_mesh(n_data, n_model, "cuda")
+        mesh = meshes[(n_data, n_model)]
+        what = f"parallel_card {label} rank {rank}"
+        teacher, student = distill_models("cuda", family)
+        cfg = DistillConfig(compute_dtype="bfloat16")
+        if fsdp:
+            shard_module(teacher, mesh)
+        gc.collect()
         torch.cuda.empty_cache()
-    dist.barrier()
-    out["layouts"] = {}
-    for n_data, n_model in ((1, 2), (2, 1)):
-        mesh = first if (n_data, n_model) == (1, 2) else create_mesh(n_data, n_model, "cuda")
-        row = {"mesh": [n_data, n_model], "backend": mesh.backend()}
         torch.cuda.reset_peak_memory_stats()
-        state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768,
-                                     seed=34, device="cuda", mesh=mesh)
+        state, tx = init_train_state(student=student, cfg=cfg,
+                                     teacher_embed_dim=teacher.spec.embed_dim, seed=34,
+                                     device="cuda", mesh=mesh, fsdp=fsdp)
+        del student
         rows = process_row_slice(mesh.data_rank, n_data, TRAIN_B)
         local = (batch[rows], None)
+        row = {"layout": label, "path": path, "family": family, "mesh": [n_data, n_model],
+               "fsdp": fsdp, "backend": mesh.backend()}
         reset_launch_counts()
         t0 = time.perf_counter()
         metrics, grads = make_grad_fn(teacher, cfg, mesh)(state, local)
         torch.cuda.synchronize()
         row["grad_step_s"] = time.perf_counter() - t0
         row["launches_forward_backward"] = nonzero(launch_counts())
-        heads = {m.heads for m in state.student.modules() if hasattr(m, "head_offset")}
-        row["student_heads_per_layer"] = sorted(heads)
-        full = {n: gather_tensor(state.shards[n], g, mesh) if n in state.shards else g
-                for n, g in grads.items()}
-        if rank == 0:
-            loss_ref, g_ref = ref
-            loss = metrics["loss"].item()
-            flat = torch.cat([full[n].flatten() for n in g_ref])
-            flat_ref = torch.cat([g_ref[n].flatten() for n in g_ref])
-            norm = flat_ref.double().norm().item()
-            norm_ratio = flat.double().norm().item() / norm
-            cos = {n: _cosine(full[n], g) for n, g in g_ref.items()
-                   if g.double().norm().item() >= PARALLEL_COS_MIN_SHARE * norm}
-            small = {n: _cosine(full[n], g) for n, g in g_ref.items() if n not in cos}
-            row.update(loss=loss, loss_one_process=loss_ref,
-                       loss_rel_err=abs(loss - loss_ref) / abs(loss_ref),
-                       grad_norm_ratio=norm_ratio,
-                       grad_cosine_all=_cosine(flat, flat_ref),
-                       grad_cosine_min_per_param=min(cos.values()),
-                       grad_cosine_worst3=sorted(cos.items(), key=lambda kv: kv[1])[:3],
-                       params_held_per_param=len(cos),
-                       params_below_share=len(small),
-                       below_share_cosine_min=min(small.values(), default=None),
-                       split_params=len(state.shards))
-            check(row["loss_rel_err"] <= PARALLEL_LOSS_TOL,
-                  f"parallel {n_data}x{n_model}: loss {loss} vs one process {loss_ref}")
-            check(abs(norm_ratio - 1) <= PARALLEL_NORM_TOL,
-                  f"parallel {n_data}x{n_model}: gradient norm {norm_ratio} x one process's")
-            check(row["grad_cosine_all"] >= PARALLEL_MIN_COS,
-                  f"parallel {n_data}x{n_model}: gradient cosine {row['grad_cosine_all']}")
-            check(row["grad_cosine_min_per_param"] >= PARALLEL_MIN_COS,
-                  f"parallel {n_data}x{n_model}: gradient cosines {row['grad_cosine_worst3']}")
-        del metrics, grads, full
+        whole = {n: gather_tensor(state.shards[n], g, mesh) if n in state.shards else g
+                 for n, g in grads.items()}
+        loss = metrics["loss"].item()
+        flat = torch.cat([whole[n].float().flatten() for n in g_ref])
+        flat_ref = torch.cat([g_ref[n].flatten() for n in g_ref])
+        norm = flat_ref.double().norm().item()
+        cos = {n: _cosine(whole[n], g) for n, g in g_ref.items()
+               if g.double().norm().item() >= PARALLEL_COS_MIN_SHARE * norm}
+        small = {n: _cosine(whole[n], g) for n, g in g_ref.items() if n not in cos}
+        row.update(loss=loss, loss_one_process=loss_ref,
+                   loss_rel_err=abs(loss - loss_ref) / abs(loss_ref),
+                   grad_norm_ratio=flat.double().norm().item() / norm,
+                   grad_cosine_all=_cosine(flat, flat_ref),
+                   grad_cosine_min_per_param=min(cos.values()),
+                   grad_cosine_worst3=sorted(cos.items(), key=lambda kv: kv[1])[:3],
+                   params_held_per_param=len(cos), params_below_share=len(small),
+                   below_share_cosine_min=min(small.values(), default=None),
+                   split_over_model=sum(b.model_dim is not None for b in state.shards.values()),
+                   split_over_data=sum(b.data_dim is not None for b in state.shards.values()))
+        check(row["loss_rel_err"] <= PARALLEL_LOSS_TOL, f"{what}: loss {loss} vs {loss_ref}")
+        check(abs(row["grad_norm_ratio"] - 1) <= PARALLEL_NORM_TOL,
+              f"{what}: gradient norm {row['grad_norm_ratio']} x one process's")
+        check(row["grad_cosine_all"] >= PARALLEL_MIN_COS,
+              f"{what}: gradient cosine {row['grad_cosine_all']}")
+        check(row["grad_cosine_min_per_param"] >= PARALLEL_MIN_COS,
+              f"{what}: gradient cosines {row['grad_cosine_worst3']}")
+        del metrics, grads, whole, flat, flat_ref
+        if fsdp:  # what the rank keeps of the split leaves: 1 / n_data, moments too
+            opt, named = state.opt_state, state.named_params()
+            kept = [(named[n].numel() * n_data, int(np.prod(b.shape)) //
+                     (b.n_model if b.model_dim is not None else 1), opt.mu[n].numel() * n_data)
+                    for n, b in state.shards.items() if b.data_dim is not None]
+            check(kept and all(a == w == m for a, w, m in kept),
+                  f"{what}: split leaves {kept[:3]}")
+            row["data_split_elements_kept"] = sum(a for a, _, _ in kept) // n_data
         # one whole step, timed; its launches; the teacher's forward alone
         step = make_train_step(teacher, cfg, tx, mesh=mesh)
         state, _ = step(state, local)  # warm
@@ -2856,22 +3004,29 @@ def parallel_card_job(payload: dict, first) -> dict:
         torch.cuda.synchronize()
         row["step_s"] = time.perf_counter() - t0
         row["launches_per_step"] = nonzero(launch_counts())
-        check(np.isfinite(m["loss"].item()), f"parallel {n_data}x{n_model}: loss not finite")
+        check(np.isfinite(m["loss"].item()), f"{what}: loss not finite")
         reset_launch_counts()
         with torch.no_grad():
-            teacher.extract_features(batch[rows].to(torch.bfloat16))
+            teacher.extract_features(local[0].to(torch.bfloat16))
         row["teacher_forward_launches"] = nonzero(launch_counts())
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        want_fwd = 24  # 12 student layers (their heads) + 12 teacher layers (12 heads)
-        check(row["launches_per_step"] == {"packed_attention_fwd": want_fwd,
-                                           "packed_attention_bwd_dq": 12,
-                                           "packed_attention_bwd_dkv": 12}
-              and row["teacher_forward_launches"] == {"packed_attention_fwd": 12},
-              f"parallel {n_data}x{n_model} rank {rank}: launches {row}")
+        row["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        # 12 student layers (their heads) + 12 teacher layers (12 heads)
+        fwd, bwd = (("packed_attention_fwd", ("packed_attention_bwd_dq",
+                                              "packed_attention_bwd_dkv"))
+                    if family == "hubert" else
+                    ("wavlm_attention_fwd", ("wavlm_attention_bwd_fused",
+                                             "wavlm_attention_bwd_dkv")))
+        check(row["launches_per_step"] == {fwd: 24, **dict.fromkeys(bwd, 12)}
+              and row["teacher_forward_launches"] == {fwd: 12},
+              f"{what}: launches {row['launches_per_step']}, teacher "
+              f"{row['teacher_forward_launches']}")
+        row["student_heads_per_layer"] = sorted({a.heads for a in state.student.modules()
+                                                 if hasattr(a, "head_offset")})
         check(row["student_heads_per_layer"] == [12 // n_model],
-              f"student heads {row['student_heads_per_layer']}")
-        out["layouts"][f"{n_data}x{n_model}"] = row
-        del state, tx, step, m
+              f"{what}: heads {row['student_heads_per_layer']}")
+        out["layouts"][label] = row
+        del state, tx, step, m, teacher
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
@@ -2905,44 +3060,64 @@ def dropout_draw_ms(spec, L: int) -> dict:
 
 
 def phase_parallel_card(spec) -> dict:
-    """Two processes on the one card over gloo (CUDA tensors), in the (1
-    data x 2 model) and (2 data x 1 model) layouts: the HuBERT Base step at
-    full width (bf16, B = 16 x 15 s, dropout 0.1), eager, K = 1, each rank
-    on its rows and heads: loss within 1e-3 of the one-process bf16 step,
-    the gathered gradient norm within 1e-3 of its norm, the cosine of all
-    the gathered gradients and of every gradient (past
-    ``PARALLEL_COS_MIN_SHARE`` of the norm) >= 0.9999; each rank's launches
-    (under (1 x 2): 12 student forwards, dq and dkv at 6 heads, 12 teacher
-    forwards at 12) and peak memory.  NCCL refuses two ranks on one card,
-    so NCCL across cards is not run here.  Before that, the packed kernels
-    at the split step's shape, (16, 749, 6, 64), against their plain
-    versions in fp32 and bf16."""
+    """Data and tensor parallelism, FSDP, HSDP and DPWavLM under tensor
+    parallelism on the one card, over gloo (CUDA tensors; NCCL refuses two
+    ranks on one card), all through ``parallel_card_job``: two processes
+    run the HuBERT Base stage-1 step at (1 data x 2 model) and (2 x 1)
+    (row "parallel_card"), at (2 x 1) with FSDP and the DPWavLM Base step
+    at (1 x 2) (row "fsdp_card"); four processes run HuBERT Base at (2 x 2)
+    HSDP (row "fsdp_card").  Full width, bf16, B = 16 x 15 s, dropout 0.1,
+    eager, K = 1, each rank on its rows and heads, every rank held to loss
+    1e-3 of the one-process bf16 step, the gathered gradient norm within
+    1e-3 of its norm, the cosine of all the gathered gradients and of
+    every gradient (past ``PARALLEL_COS_MIN_SHARE`` of the norm) >=
+    0.9999; each rank's launches (under (1 x 2): 12 student forwards, the
+    backward at 6 heads, 12 teacher forwards at 12), step time, peak and
+    reserved memory (every rank holds the reference alike, so the layouts'
+    peaks compare).  NCCL across cards is not run here.  Before that, the
+    packed kernels at the split step's shape, (16, 749, 6, 64), in fp32 and
+    bf16, and the seven WavLM entries there with those heads' 6 bias rows,
+    against their plain versions (the kernels line's ``tp`` rows); the
+    dropout draws of one step."""
     t_phase = time.perf_counter()
     L = int(frames(spec, [TRAIN_SECONDS])[0])
     kernels = phase_train_kernels(spec, cases=[("tp2", TRAIN_B, L, TP_HEADS, None)],
                                   path="parallel_card")
+    kernels.update(phase_wavlm_kernels(spec, cases=[("tp2", TRAIN_B, L, TP_HEADS, None, True)]))
     draws = dropout_draw_ms(spec, L)
+    entry = [str(pathlib.Path(__file__).resolve()), "--parallel-rank"]
+    ranks, seconds = [], {}
+    for world, layout in ((2, (1, 2)), (4, (2, 2))):
+        t0 = time.perf_counter()
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+        got, results = spawn("card", world, PARALLEL_DIR, {}, layout, entry=entry,
+                             device="cuda", backend="gloo", timeout=PARALLEL_RANK_TIMEOUT_S)
+        check_ranks(results, f"parallel_card rank ({world} processes)")
+        ranks += [dict(g, processes=world) for g in got]
+        seconds[f"{world}_processes"] = time.perf_counter() - t0
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    ranks, results = spawn("card", 2, PARALLEL_DIR, {}, (1, 2),
-                           entry=[str(pathlib.Path(__file__).resolve()), "--parallel-rank"],
-                           device="cuda", backend="gloo", timeout=PARALLEL_RANK_TIMEOUT_S)
-    check_ranks(results, "parallel_card rank")
-    counts = dict.fromkeys(WRAPPERS, 0)
-    for got in ranks:
-        for lay in got["layouts"].values():
-            for name, n in lay["launches_per_step"].items():
-                counts[name] += n
-    row = {"phase": "parallel_card", "backend": "gloo (on CUDA tensors)", "processes": 2,
-           "card": 1, "batch": [TRAIN_B, L],
-           "dtype": "bfloat16", "dropout": DROPOUT,
-           "loss_tol": PARALLEL_LOSS_TOL, "min_cos": PARALLEL_MIN_COS,
-           "norm_tol": PARALLEL_NORM_TOL, "per_param_cos_min_share": PARALLEL_COS_MIN_SHARE,
-           "ranks": [{"rank": g["rank"], **g["layouts"]} for g in ranks],
-           "activation_dropout_draw_ms": draws,
-           "launches": counts, "seconds": time.perf_counter() - t_phase}
-    emit(row)
-    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    return {"row": row, "kernels": kernels}
+    rows = {}
+    for path in CARD_PATHS:
+        counts = dict.fromkeys(WRAPPERS, 0)
+        per_rank = []
+        for got in ranks:
+            lays = {k: v for k, v in got["layouts"].items() if v["path"] == path}
+            if lays:
+                per_rank.append({"rank": got["rank"], "processes": got["processes"], **lays})
+            for lay in lays.values():
+                for name, n in lay["launches_per_step"].items():
+                    counts[name] += n
+        rows[path] = {"phase": path, "backend": "gloo (on CUDA tensors)", "card": 1,
+                      "batch": [TRAIN_B, L], "dtype": "bfloat16", "dropout": DROPOUT,
+                      "loss_tol": PARALLEL_LOSS_TOL, "min_cos": PARALLEL_MIN_COS,
+                      "norm_tol": PARALLEL_NORM_TOL,
+                      "per_param_cos_min_share": PARALLEL_COS_MIN_SHARE,
+                      "ranks": per_rank, "launches": counts}
+    rows["parallel_card"]["activation_dropout_draw_ms"] = draws
+    rows["fsdp_card"].update(spawn_seconds=seconds, seconds=time.perf_counter() - t_phase)
+    for row in rows.values():
+        emit(row)
+    return {"rows": rows, "kernels": kernels}
 
 
 def main() -> int:
@@ -3044,8 +3219,11 @@ def main() -> int:
     # on the card in both layouts, and the packed kernels at 6 heads
     reset_launch_counts()
     graph_paths["dp_nccl_world1"] = phase_dp_nccl_world1()
+    # and (path 8) FSDP (2 x 1), HSDP (2 x 2) and DPWavLM at (1 x 2), by
+    # the same ranks; the WavLM entries at the split step's 6 heads
     parallel = phase_parallel_card(base_spec)
-    path_launches["parallel_card"] = parallel["row"]["launches"]
+    for path, row in parallel["rows"].items():
+        path_launches[path] = row["launches"]
     for path, row in graph_paths.items():
         path_launches[path] = row["launches"]
     graph_replayed = {p: row["launches_in_graphs"] for p, row in graph_paths.items()}
@@ -3072,6 +3250,8 @@ def main() -> int:
     tp_rows = {name: parallel["kernels"][(name, "tp2", bf16)]
                for name in ("packed_attention_fwd", "packed_attention_bwd_dq",
                             "packed_attention_bwd_dkv")}
+    tp_rows.update({name: parallel["kernels"][(name, "tp2", bf16)] for name in KERNELS
+                    if name.startswith("wavlm_")})
     line = []
     for name, r in rows.items():
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
@@ -3102,7 +3282,7 @@ def main() -> int:
                                               "library_dropout_ms", "bound_ms", "bound_by",
                                               "max_abs_err", "achieved_tflops", "body")
                            if k in tr}
-            entry["tp"]["shape"] = tr["shape_BLHD"]
+            entry["tp"]["shape"] = tr.get("shape_BLHD") or tr["shape_BHLD"]
         if name in serve_rows:  # its serving row, without dropout
             sr = serve_rows[name]
             entry["serve"] = {k: sr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",

@@ -16,8 +16,10 @@ On N processes (``python -m torch.distributed.run --standalone
 (``--num_data_shards``, if given, must equal N / ``--tensor_parallel``),
 NCCL on the card and gloo with ``--device cpu``;
 ``--seconds_per_batch`` is one data rank's share of the global batch.
-Rank 0 logs and writes; every rank exits with the same code.  ``--fsdp``
-is refused (ROADMAP queue 1, item 7b).
+``--fsdp`` also splits the student, its Adam moments and the frozen
+teacher over the data ranks (with ``--tensor_parallel``: HSDP); on one
+process it trains as without it.  Rank 0 logs and writes; every rank exits
+with the same code.
 
 Exit codes: 0 done (``<exp_dir>/ckpts/distilled.pth`` written), 75 stopped
 by a SIGTERM or the RSS watchdog (``DPHUBERT_MAX_RSS_GB``; resumable), 76
@@ -86,10 +88,13 @@ def add_common_training_args(parser: ArgumentParser) -> None:
     parser.add_argument("--tensor_parallel", default=1, type=int,
                         help="Mesh model-axis size: attention heads and FFN units split "
                         "over it (Megatron row/column split; a layer whose heads or units "
-                        "do not divide stays replicated).  Not with WavLM.")
+                        "do not divide stays replicated; WavLM's layers take their heads' "
+                        "rows of the position bias and the GRU gate).")
     parser.add_argument("--fsdp", action="store_true",
-                        help="Not ported yet (FSDP / HSDP: ROADMAP queue 1, item 7b): "
-                        "refused.")
+                        help="ZeRO-3-style layouts: shard params, Adam moments, and the "
+                        "frozen teacher over the data axis (per-device memory ~1/n_data; "
+                        "each weight is all-gathered where it is read and its gradient "
+                        "reduce-scattered). Composes with --tensor_parallel (HSDP).")
     parser.add_argument("--accum_grad", default=1, type=int)
     parser.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                         help="Compute dtype (parameters stay fp32).")
@@ -161,10 +166,6 @@ def run_train(args, use_reg: bool = True):
     (before the export, so no partial stage output lands there).  Under
     torchrun every process runs it: the process group is started here and
     destroyed at the end."""
-    if args.fsdp:
-        raise SystemExit("--fsdp is not ported yet: FSDP / HSDP is ROADMAP.md queue 1, item "
-                         "7b (\"7b FSDP/HSDP\"); train data parallel (every process a data "
-                         "rank), or tensor parallel with --tensor_parallel")
     device = resolve_device(args.device)
     started = not multihost.is_initialized()
     device = multihost.initialize(device)
@@ -244,6 +245,7 @@ def _run_train(args, use_reg: bool, device):
         ckpt_keep=args.ckpt_keep,
         device=device,
         mesh=mesh,
+        fsdp=args.fsdp,
     )
 
     accum = max(cfg.accum_grad, 1)

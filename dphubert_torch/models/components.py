@@ -32,11 +32,16 @@ intermediate units (``FeedForward``) are split over the model group.  A
 split layer runs its own heads through the same kernels with
 ``num_heads`` = its share, takes its slice of the replicated head or
 intermediate gate after Megatron's *f* (``parallel/comm.py``), and sums
-the partial output projection with *g*, the bias added after.  Every
+the partial output projection with *g*, the bias added after; a split
+WavLM layer also takes its heads' rows of the position bias (*f* once, on
+the bias layer 0 computes) and of the GRU gate (*f* on the gate).  Every
 random number is the one-process run's: the kernels' dropout seed is
 folded by the rank's batch and head offsets
 (``ops/attention_common.fold_dropout_seed``), and an activation's dropout
 mask is drawn at the global tensor's shape and this rank's block taken.
+Every parameter is read through ``comm.full``, which gathers a parameter
+that FSDP splits over the data group (``parallel/fsdp.py``) and passes a
+whole one as it is.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from ..ops.attention_common import fold_dropout_seed
 from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
 from ..ops.wavlm_attention import wavlm_attention_qkv
-from ..parallel.comm import copy_to_model, reduce_from_model
+from ..parallel.comm import copy_to_model, full, reduce_from_model
 
 LN_EPS = 1e-5
 
@@ -181,7 +186,7 @@ class Norm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        return _layer_norm(x, self.weight, self.bias)
+        return _layer_norm(x, full(self.weight), full(self.bias))
 
 
 class Linear(nn.Module):
@@ -200,8 +205,8 @@ class Linear(nn.Module):
             _uniform_(self.bias, bound, gen)
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        b = None if self.bias is None else full(self.bias).to(x.dtype)
+        return F.linear(x, full(self.weight).to(x.dtype), b)
 
 
 class Conv1d(nn.Module):
@@ -254,16 +259,17 @@ class ConvLayerBlock(nn.Module):
         """x: (B, C_in, T) -> ((B, C_out, T'), length'); ``gate`` scales the
         output channels (the TPU package's conv channel gate)."""
         spec = self.spec
-        bias = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
-        y = F.conv1d(x, self.conv.weight.to(x.dtype), bias, stride=spec.stride)
+        bias = None if self.conv.bias is None else full(self.conv.bias).to(x.dtype)
+        y = F.conv1d(x, full(self.conv.weight).to(x.dtype), bias, stride=spec.stride)
+        if spec.norm is not None:
+            norm_w, norm_b = full(self.layer_norm.weight), full(self.layer_norm.bias)
         if spec.norm == "group_norm":
             # GroupNorm(C, C): per-channel statistics over all T, padding
             # included, so the padded length changes the valid frames
-            y = _layer_norm(y, self.layer_norm.weight, self.layer_norm.bias,
-                            dim=2, affine_dim=1)
+            y = _layer_norm(y, norm_w, norm_b, dim=2, affine_dim=1)
         elif spec.norm == "layer_norm":
             # transposed LayerNorm: over the channels at every frame
-            y = _layer_norm(y, self.layer_norm.weight, self.layer_norm.bias, dim=1)
+            y = _layer_norm(y, norm_w, norm_b, dim=1)
         y = F.gelu(y)
         if gate is not None:
             y = y * gate.to(y.dtype)[None, :, None]
@@ -292,7 +298,7 @@ class FeatureExtractor(nn.Module):
         for i, layer in enumerate(self.conv_layers):
             x, lengths = layer(x, lengths, _gate(gates, "conv_layers", str(i)))
         x = x.transpose(1, 2)
-        return x * self.dummy_weight.to(x.dtype), lengths
+        return x * full(self.dummy_weight).to(x.dtype), lengths
 
 
 def output_lengths(spec: ModelSpec, lengths):
@@ -343,8 +349,8 @@ class WeightNormConv(nn.Module):
             self.weight_g.copy_(v.square().sum(dim=(0, 1), keepdim=True).sqrt())
 
     def weight(self, dtype):
-        g = self.weight_g.float()
-        v = self.weight_v.float()
+        g = full(self.weight_g).float()
+        v = full(self.weight_v).float()
         norm = v.square().sum(dim=(0, 1), keepdim=True).sqrt()
         return (v * (g / norm)).to(dtype)
 
@@ -362,7 +368,7 @@ class ConvolutionalPositionalEmbedding(nn.Module):
     def forward(self, x):
         k = self.kernel_size
         y = F.conv1d(
-            x.transpose(1, 2), self.conv.weight(x.dtype), self.conv.bias.to(x.dtype),
+            x.transpose(1, 2), self.conv.weight(x.dtype), full(self.conv.bias).to(x.dtype),
             padding=k // 2, groups=self.groups,
         )
         if k % 2 == 0:
@@ -487,8 +493,9 @@ class SelfAttention(nn.Module):
     def _qkv(self, x):
         """One fused (B*L, E) @ (E, 3*H*D) product; q, k, v stay views of
         it."""
-        w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
-        b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        w = torch.cat([full(p.weight) for p in projs])
+        b = torch.cat([full(p.bias) for p in projs])
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
     def _dropout_seed(self, x, generator):
@@ -515,9 +522,9 @@ class SelfAttention(nn.Module):
                 head_gate = _model_slice(head_gate, self.shard, self.head_offset, H)
             out = (out.view(B, L, H, D) * head_gate.to(out.dtype)[:, None]).view(B, L, H * D)
         if self.split:
-            partial = F.linear(out, self.out_proj.weight.to(out.dtype))
+            partial = F.linear(out, full(self.out_proj.weight).to(out.dtype))
             out = (reduce_from_model(partial, self.shard.group)
-                   + self.out_proj.bias.to(out.dtype))
+                   + full(self.out_proj.bias).to(out.dtype))
         else:
             out = self.out_proj(out)
         layer_gate = _gate(gates, "layer")
@@ -550,9 +557,21 @@ class WavLMSelfAttention(SelfAttention):
     ``rel_attn_embed`` and computes the (total_num_heads, L, L) bias, which
     every later layer receives; each layer holds ``gru_rel_pos_linear``
     (embed/total_num_heads -> 8) and ``gru_rel_pos_const`` (1, TH, 1, 1).
-    A pruned layer keeps the bias and gate rows of its ``remaining_heads``.
-    Without a bias (layer 0's attention pruned away) the layer is plain
-    attention."""
+    A pruned layer keeps the bias and gate rows of its ``remaining_heads``;
+    a layer split over the model group keeps the rows of its share of
+    those heads.  Without a bias (layer 0's attention pruned away) the layer
+    is plain attention.
+
+    The bias passes from layer to layer as a pair: the tensor, and the same
+    tensor after Megatron's *f* over the model group, which the split layers
+    slice.  The *f* is put on once, where layer 0 computes the bias, so a
+    step all-reduces the bias's gradient over the model group once and not
+    in every layer; a layer that stays whole reads the first, whose
+    gradient is already whole on every rank.  The gate is computed whole
+    on every rank from the layer's input and sliced after its own *f*, so
+    the table's and the GRU's gradients sum every model rank's heads."""
+
+    _split_rows: Optional[torch.Tensor] = None  # a split layer's bias and gate rows
 
     def __init__(self, spec: AttentionSpec):
         super().__init__(spec)
@@ -576,14 +595,16 @@ class WavLMSelfAttention(SelfAttention):
                 self.gru_rel_pos_const.fill_(1.0)
 
     def set_shard(self, shard: Shard, split: bool) -> None:
-        """Data parallel only: the heads' split would also have to slice the
-        (TH, L, L) bias and the GRU gate's rows."""
-        if shard.n_model > 1:
-            raise NotImplementedError(
-                "WavLM under --tensor_parallel > 1 is not ported: its split would slice the "
-                "position bias and the GRU gate too (ROADMAP.md, queue 1, item 7c: \"WavLM "
-                "under TP\"); run DPWavLM data parallel (--tensor_parallel 1)")
+        """As ``SelfAttention.set_shard``; a split layer's bias and gate rows
+        are its heads': the kept heads (``remaining_heads``) first, then
+        this rank's share of them."""
         super().set_shard(shard, split)
+        self._split_rows = None
+        if split:
+            rows = (self._keep_heads.tolist() if self._keep_heads is not None
+                    else list(range(self.spec.total_num_heads)))
+            self._split_rows = torch.tensor(rows[self.head_offset:self.head_offset + self.heads],
+                                            dtype=torch.int64, device=self.q_proj.weight.device)
 
     def _gate_a_1(self, x):
         """(B, TH, L) fp32 gate from the pre-projection input, split into
@@ -595,27 +616,35 @@ class WavLMSelfAttention(SelfAttention):
         query = x.reshape(B, L, TH, E // TH).transpose(1, 2)
         raw = self.gru_rel_pos_linear(query)  # (B, TH, L, 8) in x's dtype
         g = torch.sigmoid(raw.reshape(B, TH, L, 2, 4).sum(-1).float())
-        const = self.gru_rel_pos_const.float().view(1, TH, 1)
+        const = full(self.gru_rel_pos_const).float().view(1, TH, 1)
         return g[..., 0] * (g[..., 1] * const - 1.0) + 2.0
 
     def forward(self, x, lengths, position_bias=None, gates=None, generator=None):
-        """As ``SelfAttention.forward``, with the (TH, L, L) ``position_bias``
-        of an earlier layer (None in layer 0, which computes it) ->
-        (output, position_bias)."""
+        """As ``SelfAttention.forward``, with the position bias pair of an
+        earlier layer (None in layer 0, which computes it) -> (output,
+        position bias pair)."""
         spec = self.spec
         B, L, _ = x.shape
         if spec.has_relative_attention_bias and position_bias is None:
-            position_bias = compute_wavlm_bias(self.rel_attn_embed.weight, spec, L)
+            bias = compute_wavlm_bias(full(self.rel_attn_embed.weight), spec, L)
+            model = self.shard is not None and self.shard.n_model > 1
+            position_bias = (bias, copy_to_model(bias, self.shard.group) if model else bias)
         if position_bias is None:
             return super().forward(x, lengths, gates, generator), None
         if spec.gru_rel_pos:
             gate = self._gate_a_1(x)
         else:
             gate = torch.ones((B, spec.total_num_heads, L), device=x.device)
-        bias = position_bias
-        if self._keep_heads is not None:
-            bias, gate = bias[self._keep_heads], gate[:, self._keep_heads]
-        H, D = spec.num_heads, spec.head_dim
+        if self.split:
+            rows = self._split_rows
+            bias = position_bias[1][rows]
+            gate = copy_to_model(gate, self.shard.group)[:, rows]
+            x = copy_to_model(x, self.shard.group)
+        else:
+            bias = position_bias[0]
+            if self._keep_heads is not None:
+                bias, gate = bias[self._keep_heads], gate[:, self._keep_heads]
+        H, D = self.heads, spec.head_dim
         qkv = self._qkv(x)
         rate, seed = self._dropout_seed(x, generator)
         out = wavlm_attention_qkv(qkv, bias, gate, lengths, num_heads=H, scale=D ** -0.5,
@@ -665,9 +694,9 @@ class FeedForward(nn.Module):
                 interm_gate = _model_slice(interm_gate, sh, self.unit_offset, self.units)
             y = y * interm_gate.to(y.dtype)
         if self.split:
-            partial = F.linear(y, self.output_dense.weight.to(y.dtype))
+            partial = F.linear(y, full(self.output_dense.weight).to(y.dtype))
             y = (reduce_from_model(partial, sh.group)
-                 + self.output_dense.bias.to(y.dtype))
+                 + full(self.output_dense.bias).to(y.dtype))
         else:
             y = self.output_dense(y)
         y = _dropout(y, self.spec.output_dropout, generator, sh)
@@ -697,8 +726,9 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = Norm(spec.embed_dim)
 
     def forward(self, x, lengths, gates=None, generator=None, position_bias=None):
-        """-> (output, position_bias): WavLM's bias passes through every
-        layer (computed in layer 0); None for wav2vec 2.0 / HuBERT."""
+        """-> (output, position_bias): WavLM's bias pair passes through every
+        layer (computed in layer 0, ``WavLMSelfAttention``); None for
+        wav2vec 2.0 / HuBERT."""
         att_gates = _gate(gates, "attention")
         ff_gates = _gate(gates, "feed_forward")
         if self.attention is not None:

@@ -13,7 +13,15 @@
   buffer per dtype and one collective each, between the backward and the
   optimizer.  It is also what lets a K-step CUDA graph capture the
   collective (NCCL's can be captured; DDP's reducer hooks fire on
-  ``.grad`` accumulation, which ``autograd.grad`` never does).
+  ``.grad`` accumulation, which ``autograd.grad`` never does);
+* ``full`` (FSDP, ``fsdp.py``): a parameter that holds only this data
+  rank's block (``p.fsdp``, a ``DataShard``) is all-gathered over the data
+  group where a module reads it; backward, its gradient is reduce-scattered
+  over the same group and divided by the group's size, so ``autograd.grad``
+  returns the block of the data-averaged gradient (the mean that
+  ``all_reduce_grads`` takes of a whole one).  A parameter without
+  ``fsdp`` passes as it is.  Both collectives are captured in a K-step CUDA
+  graph over NCCL as the all-reduce is.
 
 Over gloo, CUDA tensors go to gloo as they are (the card's gloo takes them:
 ``chip_smoke.py`` phase "parallel_card").
@@ -21,7 +29,8 @@ Over gloo, CUDA tensors go to gloo as they are (the card's gloo takes them:
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
@@ -59,6 +68,54 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+@dataclass(frozen=True)
+class DataShard:
+    """Where an FSDP parameter's block lies: ``n`` equal blocks along
+    ``dim`` over the data ``group``, this rank's in rank order."""
+
+    dim: int
+    n: int
+    group: Any = None
+
+    def __deepcopy__(self, memo):
+        return self  # holds a process group, a handle
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, ds: DataShard):
+        ctx.ds = ds
+        shard = shard.contiguous()
+        flat = shard.new_empty(ds.n * shard.numel())  # flat: gloo takes no other shape
+        dist.all_gather_into_tensor(flat, shard.view(-1), group=ds.group)
+        # (n, ..., a_dim, ...) -> (..., n * a_dim, ...): the blocks in rank order
+        full = flat.view((ds.n,) + tuple(shard.shape)).movedim(0, ds.dim)
+        return full.reshape(full.shape[:ds.dim] + (-1,) + full.shape[ds.dim + 2:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        ds = ctx.ds
+        shape = grad.shape[:ds.dim] + (ds.n, grad.shape[ds.dim] // ds.n) + grad.shape[ds.dim + 1:]
+        parts = grad.reshape(shape).movedim(ds.dim, 0).contiguous()
+        out = parts.new_empty(parts.shape[1:])
+        dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=ds.group)
+        return out.div_(ds.n), None
+
+
+def full(p: torch.Tensor) -> torch.Tensor:
+    """``p`` where it is whole; an FSDP parameter's one-card tensor (over
+    the model split, if any: this model rank's block) gathered from every
+    data rank's block, its gradient reduce-scattered backward."""
+    ds = getattr(p, "fsdp", None)
+    return p if ds is None else _GatherFromData.apply(p, ds)
+
+
+def full_numel(p: torch.Tensor) -> int:
+    """The element count of ``full(p)``, without the gather."""
+    ds = getattr(p, "fsdp", None)
+    return p.numel() * (1 if ds is None else ds.n)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

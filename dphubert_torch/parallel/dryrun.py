@@ -7,12 +7,13 @@ paths (the counterparts of the TPU package's
 
 ``multichip N`` runs the full stage-1 step (gated student, dropout on) of a
 tiny model (4 heads of 64) on a (N/2 data x 2 model) mesh (N even and >= 4;
-else N x 1): one step, and two as one call of ``steps_per_call=2``.
-``multihost N`` runs the trainer end to end on N data-parallel processes: 3
-steps with rank-0 checkpoints and metrics, a resume to 5 from that
-checkpoint, and the rotated backend (2 steps, a resume of the directory to
-4).  Each prints one ``ok`` line; a rank that fails or passes its time
-limit fails the run.
+else N x 1): one step, and two as one call of ``steps_per_call=2``; then
+one step with FSDP on an (N x 1) mesh and one with HSDP (FSDP and the model
+split) on the (N/2 x 2) one.  ``multihost N`` runs the trainer end to end
+on N data-parallel processes: 3 steps with rank-0 checkpoints and metrics,
+a resume to 5 from that checkpoint, the rotated backend (2 steps, a resume
+of the directory to 4), and 2 steps with ``fsdp``.  Each prints one ``ok``
+line; a rank that fails or passes its time limit fails the run.
 
 On the card (the default) rank r takes ``cuda:(r % cards)``: NCCL when
 every rank has a card of its own, else gloo on CUDA tensors (NCCL refuses
@@ -25,7 +26,9 @@ The harness is shared with the tests' ranks and the smoke's phase
 directory, starts one process per rank (``start``), each with its own time
 limit, and returns what each rank's job returned; a rank process calls
 ``run_rank`` with the jobs it knows (``JOBS``: ``steps``, ``train`` and
-``jobs``, several of them in one process group).
+``jobs``, several of them in one process group, each on the group's mesh
+or on the layout its payload names).  A job's payload may ask for FSDP
+(``fsdp``).
 """
 
 from __future__ import annotations
@@ -157,6 +160,8 @@ def run_rank(jobs: dict, argv) -> None:
     device = multihost.initialize(device, backend=None if backend == "default" else backend,
                                   store=dist.FileStore(str(tmp / "store"), world), rank=rank,
                                   world_size=world)
+    # "jobs" runs the jobs this process knows
+    jobs = {**jobs, "jobs": lambda p, m: run_jobs(p, m, jobs)}
     try:
         mesh = create_mesh(int(n_data), int(n_model), device.type)
         payload = torch.load(tmp / "in.pt", weights_only=False)
@@ -197,21 +202,45 @@ def _one_card(state) -> dict:
     return {n: t.detach().cpu().clone() for n, t in gather_full(state).items()}
 
 
+def fsdp_on(payload: dict, mesh) -> bool:
+    """Whether the payload asks for FSDP (only on a mesh)."""
+    return bool(payload.get("fsdp")) and mesh is not None
+
+
+def shard_teacher(teacher, payload: dict, mesh) -> None:
+    """Split the teacher over the data group where the payload asks for
+    FSDP on a mesh."""
+    from .fsdp import shard_module
+
+    if fsdp_on(payload, mesh):
+        shard_module(teacher, mesh)
+
+
+def local_numel(state) -> dict:
+    """Each split parameter's elements on this rank: (parameter, first
+    moment, second moment)."""
+    opt = state.opt_state
+    named = state.named_params()
+    return {n: (named[n].numel(), opt.mu[n].numel(), opt.nu[n].numel()) for n in state.shards}
+
+
 def run_steps(payload: dict, mesh=None) -> dict:
     """``len(payload["waves"])`` distill steps from a fresh state (seed
     ``payload["seed"]``; ``params``: one-card parameters to load; ``gate_u``:
-    each step's gate draws), ``steps_per_call`` a call; each rank feeds its
-    rows.  Returns every step's metrics, the one-card parameters after the
-    last step, the step count, the generator's state and the split
-    parameters."""
+    each step's gate draws; ``fsdp``), ``steps_per_call`` a call; each rank
+    feeds its rows.  Returns every step's metrics, the one-card parameters
+    after the last step, the step count, the generator's state, the split
+    parameters and their elements on this rank."""
     from ..train import DistillConfig, init_train_state, make_train_step
 
     teacher, student = models(payload)
+    shard_teacher(teacher, payload, mesh)
     cfg = DistillConfig(**payload["distill"])
     state, tx = init_train_state(student=student, cfg=cfg,
                                  teacher_embed_dim=teacher.spec.embed_dim,
                                  seed=payload.get("seed", 0),
-                                 device=payload.get("device", "cuda"), mesh=mesh)
+                                 device=payload.get("device", "cuda"), mesh=mesh,
+                                 fsdp=fsdp_on(payload, mesh))
     if payload.get("params") is not None:
         state.load_params(payload["params"])
     waves = payload["waves"]
@@ -230,7 +259,8 @@ def run_steps(payload: dict, mesh=None) -> dict:
             state, m = group(state, (np.stack([w[rows] for w in waves[i:i + k]]), None))
             metrics.extend({n: float(v[j]) for n, v in m.items()} for j in range(k))
     return {"metrics": metrics, "params": _one_card(state), "step": state.step,
-            "generator": state.generator.get_state(), "shards": dict(state.shards)}
+            "generator": state.generator.get_state(), "shards": dict(state.shards),
+            "local_numel": local_numel(state)}
 
 
 class RowLoader:
@@ -268,16 +298,31 @@ def run_train(payload: dict, mesh=None) -> dict:
                   stop_at_step=payload.get("stop_at_step"), stop_info=stop,
                   ckpt_backend=payload.get("ckpt_backend", "last"),
                   ckpt_keep=payload.get("ckpt_keep", 3),
-                  device=payload.get("device", "cuda"), mesh=mesh)
+                  device=payload.get("device", "cuda"), mesh=mesh,
+                  fsdp=fsdp_on(payload, mesh))
     return {"params": _one_card(state), "step": state.step, "why": stop.get("why")}
 
 
-def run_jobs(payload: dict, mesh=None) -> dict:
+def run_jobs(payload: dict, mesh=None, registry=None) -> dict:
     """Several jobs in one process group, in order: ``payload["jobs"]`` maps
-    a name to (job, payload); returns each job's result by name."""
+    a name to (job, payload), the job looked up in ``registry`` (default
+    ``JOBS``); a job whose payload names a ``layout`` (n_data, n_model)
+    other than the group's runs on a mesh of that layout over the same
+    processes.  Returns each job's result by name."""
+    from .mesh import create_mesh
+
     device = {"device": payload["device"]} if "device" in payload else {}
-    return {name: JOBS[job](dict(p, **device), mesh)
-            for name, (job, p) in payload["jobs"].items()}
+    meshes = {} if mesh is None else {(mesh.n_data, mesh.n_model): mesh}
+    out = {}
+    for name, (job, p) in payload["jobs"].items():
+        m = mesh
+        if mesh is not None and "layout" in p:
+            layout = tuple(p["layout"])
+            if layout not in meshes:
+                meshes[layout] = create_mesh(*layout, torch.device(payload["device"]).type)
+            m = meshes[layout]
+        out[name] = (registry or JOBS)[job](dict(p, **device), m)
+    return out
 
 
 JOBS = {"steps": run_steps, "train": run_train, "jobs": run_jobs}
@@ -316,10 +361,18 @@ def multichip(n: int, device: str, tmp) -> str:
     graphs = device == "cpu" or backend == "nccl"
     if graphs:
         jobs["group"] = ("steps", dict(base, waves=waves[1:], steps_per_call=2))
+    jobs["fsdp"] = ("steps", dict(base, waves=waves[:1], fsdp=True, layout=(n, 1)))
+    jobs["hsdp"] = ("steps", dict(base, waves=waves[:1], fsdp=True))
     out = _run(jobs, n, layout, device, backend, tmp)
     loss = out["one"]["metrics"][0]["loss"]
     if not np.isfinite(loss):
         raise RuntimeError(f"non-finite loss {loss}")
+    sharded = {}
+    for name in ("fsdp", "hsdp"):
+        got = out[name]
+        if not abs(got["metrics"][0]["loss"] - loss) <= 1e-3 * abs(loss):
+            raise RuntimeError(f"{name}: loss {got['metrics'][0]['loss']} against {loss}")
+        sharded[name] = sum(b.data_dim is not None for b in got["shards"].values())
     if graphs:
         group = out["group"]
         losses = [m["loss"] for m in group["metrics"]]
@@ -331,7 +384,9 @@ def multichip(n: int, device: str, tmp) -> str:
                      "collectives")
     return (f"dryrun_multichip({n}): ok - loss={loss:.4f}, {multistep}, "
             f"mesh=(data {layout[0]}, model {layout[1]}), {backend} on {device}, split "
-            f"parameters {len(out['one']['shards'])}")
+            f"parameters {len(out['one']['shards'])}; FSDP (data {n}) and HSDP (data "
+            f"{layout[0]}, model {layout[1]}) losses within 1e-3, "
+            f"{sharded['fsdp']} / {sharded['hsdp']} parameters split over the data group")
 
 
 def multihost(n: int, device: str, tmp) -> str:
@@ -347,15 +402,17 @@ def multihost(n: int, device: str, tmp) -> str:
             "resume": train(5, exp, resume=str(exp / "ckpts" / "last.pt")),
             "rotated": train(2, rotated, ckpt_backend="rotated", ckpt_keep=2),
             "rotated_resume": train(4, rotated, ckpt_backend="rotated", ckpt_keep=2,
-                                    resume=str(rotated / "ckpts" / "rotated"))}
+                                    resume=str(rotated / "ckpts" / "rotated")),
+            "fsdp": train(2, pathlib.Path(tmp) / "fsdp_run", fsdp=True)}
     out = _run(jobs, n, (n, 1), device, _backend(n, device), tmp)
     steps = {name: r["step"] for name, r in out.items()}
-    if steps != {"first": 3, "resume": 5, "rotated": 2, "rotated_resume": 4}:
+    if steps != {"first": 3, "resume": 5, "rotated": 2, "rotated_resume": 4, "fsdp": 2}:
         raise RuntimeError(f"steps reached: {steps}")
     if not ((exp / "ckpts" / "last.pt").exists() and (exp / "metrics.jsonl").exists()):
         raise RuntimeError("rank 0 wrote no checkpoint or metrics")
     return (f"dryrun_multihost({n}): ok - trainer ran 3+2 steps on {n} processes "
-            f"({device}), rank-0 checkpoint and resume, rotated backend and directory resume")
+            f"({device}), rank-0 checkpoint and resume, rotated backend and directory "
+            f"resume, 2 steps with fsdp")
 
 
 MODES = {"multichip": multichip, "multihost": multihost}

@@ -5,7 +5,8 @@ have a mesh of (n_data x 1): every rank holds the whole student, feeds its
 block of each global batch, and the gradients are averaged over the
 ``data`` group after the backward (``comm.all_reduce_grads``).  A
 ``model`` axis splits the attention heads and the FFN's intermediate
-units over its ranks (``sharding.py``).  The ranks are laid out as the TPU
+units over its ranks (``sharding.py``); with FSDP the ``data`` group also
+splits every large leaf of the state and the teacher (``fsdp.py``).  The ranks are laid out as the TPU
 package reshapes its devices: ``model`` innermost, so global rank
 ``r`` is data rank ``r // n_model`` and model rank ``r % n_model``.
 """

@@ -12,22 +12,29 @@ The reference never shards parameters (DDP only).  Over the mesh's
     ``output_dense`` columns.
 
 Everything else (convs, norms, embeddings, gates, the output projections'
-biases, projections, λs) is replicated.  The TPU rule splits any such leaf
-whose dimension divides by the model axis; the kernels here need whole
-heads, so a layer whose heads (or intermediate units) do not divide by
-``n_model`` runs replicated on every model rank (ROADMAP queue 3: 11 heads
-of 64 at M = 2 would be 5.5 heads a shard).  WavLM's attention is not split
-(ROADMAP queue 1, item 7c).
+biases, projections, λs, WavLM's position-bias table and GRU gate) is
+replicated over the model group.  The TPU rule splits any such leaf whose
+dimension divides by the model axis; the kernels here need whole heads, so
+a layer whose heads (or intermediate units) do not divide by ``n_model``
+runs replicated on every model rank (ROADMAP queue 3: 11 heads of 64 at M
+= 2 would be 5.5 heads a shard).  A split WavLM layer also takes its heads'
+rows of the position bias and of the GRU gate (``components.py``).
+
+With ``fsdp`` (``fsdp.py``) every large leaf is further split over the
+data group on a dimension the model axis leaves free; a ``Block`` records
+both splits of a parameter, and its moments follow it.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from .comm import all_gather_cat
+from .fsdp import fsdp_dims, mark
 from .mesh import Mesh, replicate
 
 _ATT = re.compile(r"^(?:student\.)?encoder\.transformer\.layers\.(\d+)\.attention\."
@@ -95,57 +102,102 @@ def set_model_shard(model, mesh: Mesh) -> None:
             layer.feed_forward.set_shard(shard, ffn)
 
 
+@dataclass(frozen=True)
+class Block:
+    """This rank's block of a parameter (or moment) of one-card shape
+    ``shape``: split along ``model_dim`` into ``n_model`` blocks over the
+    model group, then along ``data_dim`` into ``n_data`` over the data
+    group (FSDP); None where that group does not split it."""
+
+    shape: Tuple[int, ...]
+    model_dim: Optional[int] = None
+    model_rank: int = 0
+    n_model: int = 1
+    data_dim: Optional[int] = None
+    data_rank: int = 0
+    n_data: int = 1
+
+    def groups(self, mesh: Mesh) -> tuple:
+        """The process groups over which the block's squares are summed
+        (``optim.global_norm``)."""
+        return ((mesh.model_group,) if self.model_dim is not None else ()) + (
+            (mesh.data_group,) if self.data_dim is not None else ())
+
+
 @torch.no_grad()
-def shard_train_state(state, mesh: Mesh, tx=None) -> None:
+def shard_train_state(state, mesh: Mesh, tx=None, fsdp: bool = False) -> None:
     """Place a fresh training state on ``mesh`` in place: every rank takes
     rank 0's parameters, the student's modules learn their shard, the
-    split parameters and their Adam moments are narrowed to this model
-    rank's block, ``state.shards`` records each block (dim, start, length,
-    full length) by parameter name, and the optimizer's clip learns which
-    leaves are split (``tx.shard_norm``)."""
+    split parameters are narrowed to this rank's block, model split first
+    and, with ``fsdp``, the data split of every leaf ``fsdp.fsdp_dim``
+    picks (the λs stay whole), their Adam moments (and accumulator)
+    beside them; ``state.shards`` records each ``Block`` by parameter name,
+    and the optimizer's clip learns the groups over which each block is
+    split (``tx.shard_norm``)."""
     replicate(list(state.named_params().values()), mesh)
     set_model_shard(state.student, mesh)
     named = state.named_params()
+    model_dims = {n: d for n, d in split_dims(state.student.spec, named, mesh.n_model).items()
+                  if d is not None}
+    data_dims = {}
+    if fsdp:
+        data_dims = fsdp_dims({n: tuple(p.shape) for n, p in named.items()
+                               if not n.startswith("lambdas.")},
+                              mesh.n_data, model_dims)
     shards = {}
-    for name, dim in split_dims(state.student.spec, named, mesh.n_model).items():
-        if dim is None:
-            continue
-        full = named[name].shape[dim]
-        n = full // mesh.n_model
-        shards[name] = (dim, mesh.model_rank * n, n, full)
-    state.mesh, state.shards = mesh, shards
     for name, p in named.items():
-        if name in shards:
-            p.data = narrow(shards[name], p.data)
+        md, dd = model_dims.get(name), data_dims.get(name)
+        if md is None and dd is None:
+            continue
+        shards[name] = Block(tuple(p.shape), md, mesh.model_rank, mesh.n_model, dd,
+                             mesh.data_rank, mesh.n_data)
+    state.mesh, state.shards = mesh, shards
+    for name, block in shards.items():
+        p = named[name]
+        if block.model_dim is not None:
+            n = block.shape[block.model_dim] // mesh.n_model
+            p.data = p.data.narrow(block.model_dim, mesh.model_rank * n, n).clone()
+        if block.data_dim is not None:
+            mark(p, block.data_dim, mesh)
     opt = state.opt_state
     for group in (opt.mu, opt.nu, opt.acc):
         for name in shards if group is not None else ():
             group[name] = narrow(shards[name], group[name])
     if tx is not None:
-        tx.shard_norm(set(shards), mesh.model_group if mesh.n_model > 1 else None)
+        tx.shard_norm({n: b.groups(mesh) for n, b in shards.items()})
 
 
-def narrow(block: Tuple[int, int, int, int], full: torch.Tensor) -> torch.Tensor:
+def narrow(block: Block, full: torch.Tensor) -> torch.Tensor:
     """This rank's block (a copy) of a one-card tensor; raises if the
     tensor is not at the one-card shape."""
-    dim, start, n, length = block
-    if full.shape[dim] != length:
-        raise ValueError(f"expected a one-card tensor of {length} along dim {dim}, got shape "
+    if tuple(full.shape) != tuple(block.shape):
+        raise ValueError(f"expected a one-card tensor of shape {tuple(block.shape)}, got "
                          f"{tuple(full.shape)}")
-    return full.narrow(dim, start, n).clone()
+    t = full
+    for dim, rank, n in ((block.model_dim, block.model_rank, block.n_model),
+                         (block.data_dim, block.data_rank, block.n_data)):
+        if dim is not None:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, rank * size, size)
+    return t.clone()
 
 
-def gather_tensor(block, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The one-card tensor of a split parameter (or moment) from every
-    model rank's block."""
-    return all_gather_cat(t, block[0], mesh.model_group, mesh.n_model)
+def gather_tensor(block: Block, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The one-card tensor of a split parameter (or moment, or gradient)
+    from every rank's block: gathered over the data group, then over the
+    model group."""
+    if block.data_dim is not None:
+        t = all_gather_cat(t, block.data_dim, mesh.data_group, mesh.n_data)
+    if block.model_dim is not None:
+        t = all_gather_cat(t, block.model_dim, mesh.model_group, mesh.n_model)
+    return t
 
 
 @torch.no_grad()
 def gather_full(state) -> Dict[str, torch.Tensor]:
     """The one-card parameter dict (``TrainState.named_params``' names): the
-    split parameters gathered over the model group (every rank must call
-    it), the rest as they are."""
+    split parameters gathered over the data and the model group (every
+    rank must call it), the rest as they are."""
     named = {n: p.detach() for n, p in state.named_params().items()}
     return {n: gather_tensor(state.shards[n], p, state.mesh) if n in state.shards else p
             for n, p in named.items()}
@@ -155,7 +207,8 @@ def gather_full(state) -> Dict[str, torch.Tensor]:
 def gather_state_tensors(state) -> Dict[str, torch.Tensor]:
     """Every tensor of a checkpoint (``params/``, ``mu/``, ``nu/``,
     ``acc/`` names) at one-card shapes: the split ones gathered over the
-    model group on the compute stream (every rank must call it)."""
+    data and the model group on the compute stream (every rank must call
+    it)."""
     out = {f"params/{n}": p for n, p in gather_full(state).items()}
     opt = state.opt_state
     for group in ("mu", "nu", "acc"):

@@ -19,11 +19,12 @@ with ``torch.load(weights_only=True)``:
 
 so that a resumed run takes exactly the batches, gate draws and dropout
 masks an uninterrupted run would.  A checkpoint always holds the one-card
-state: a tensor-parallel run gathers its split tensors over the model group
-on the compute stream before the snapshot
-(``parallel.sharding.gather_state_tensors``, passed in as ``tensors``),
-rank 0 writes, and on resume every rank reads the file and takes its own
-block, at any layout (``layout`` is recorded for information only).  Every file is written to a temporary
+state: a run that splits tensors (tensor parallelism, FSDP, HSDP) gathers
+them over the data and the model group on the compute stream before the
+snapshot (``parallel.sharding.gather_state_tensors``, passed in as
+``tensors``), rank 0 writes, and on resume every rank reads the file and
+takes its own block, at any layout (``layout`` is recorded for information
+only).  Every file is written to a temporary
 name and renamed, so a crash mid-write leaves the previous one whole.
 
 * ``save_train_state`` writes ``ckpts/last.pt`` (the TPU package's
@@ -107,7 +108,7 @@ def host_snapshot(state: TrainState, tensors: Optional[Dict[str, torch.Tensor]] 
                   ) -> Snapshot:
     """The state copied to the host, tensor by tensor (the synchronous
     path: no second copy of the state on the card); ``tensors`` replaces
-    the state's own (the one-card tensors of a tensor-parallel state)."""
+    the state's own (the one-card tensors of a state split on a mesh)."""
     live = _state_tensors(state) if tensors is None else tensors
     flats = [t.reshape(-1).to("cpu", copy=True) for t in live.values()]
     layout = [(name, i, 0, t.shape) for i, (name, t) in enumerate(live.items())]
@@ -195,7 +196,7 @@ def save_train_state(path, state, *, epoch: int = 0, batch_in_epoch: int = 0,
                      tensors: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Write the training state (a ``TrainState``, or a ``Snapshot`` on the
     host) and the loader position to ``path``; ``tensors``: the one-card
-    tensors of a tensor-parallel ``TrainState`` (``host_snapshot``)."""
+    tensors of a ``TrainState`` that splits them (``host_snapshot``)."""
     path = pathlib.Path(path)
     snap = state if isinstance(state, Snapshot) else host_snapshot(state, tensors)
     payload = _payload(snap, epoch=epoch, batch_in_epoch=batch_in_epoch,
@@ -246,8 +247,8 @@ def load_train_state(path, state: TrainState, *, accum_grad: int = 1,
     """Restore ``path`` (a file, or a directory of rotated checkpoints: its
     newest) into ``state`` in place (parameters, moments, step and
     generator); returns the loader position (epoch, batch_in_epoch).  A
-    tensor-parallel state takes its block of every split tensor, whatever
-    layout wrote the file.
+    state on a mesh takes its block of every split tensor, whatever layout
+    wrote the file.
     Raises where the checkpoint cannot continue this run: another format,
     a generator of another device type, another ``accum_grad`` or
     ``steps_per_dispatch``."""
@@ -337,7 +338,7 @@ def background_ckpt_fits(state, *, device=None, tensors=None) -> bool:
     where the total is not known (the CPU).  ``DPHUBERT_BG_CKPT=1/0``
     overrides the decision; ``DPHUBERT_SYNC_CKPT=1`` (the TPU package's
     switch) is ``DPHUBERT_BG_CKPT=0``.  ``tensors``: the one-card tensors
-    of a tensor-parallel state, which the snapshot holds."""
+    of a state split on a mesh, which the snapshot holds."""
     force = os.environ.get("DPHUBERT_BG_CKPT")
     if os.environ.get("DPHUBERT_SYNC_CKPT") == "1":
         force = "0"
@@ -423,7 +424,7 @@ class BackgroundSaver:
 
     def submit(self, state: TrainState, tensors=None, **kwargs) -> None:
         """Snapshot ``state`` (its ``tensors``, where given: the one-card
-        tensors of a tensor-parallel state) and hand it to the writer."""
+        tensors of a state split on a mesh) and hand it to the writer."""
         if self._degraded:
             self._save_fn(host_snapshot(state, tensors), **kwargs)
             return

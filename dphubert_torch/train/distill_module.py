@@ -33,14 +33,19 @@ cannot replay (ROADMAP queue 1).
 Parallel (``parallel/``): ``init_train_state(..., mesh=...)`` places the
 state on a (data x model) mesh (``sharding.shard_train_state``: rank 0's
 parameters everywhere, the heads and FFN units split over the model
-group), and ``make_grad_fn`` / ``make_train_step(..., mesh=...)`` average
-the gradients (and the metrics, in the same buffer) over the data group
-between the backward and the optimizer, one flat buffer per dtype: an
-explicit all-reduce, since ``autograd.grad`` fires none of DDP's hooks, and
-one that a K-step CUDA graph captures over NCCL (its communicator is made
-by the key's eager first group, before the capture).  Over gloo on the card
-K > 1 is refused: gloo's collectives cannot be captured.  ``grad_norm`` and
-the clip take the one-card norm (``optim.global_norm``).
+group; with ``fsdp=True`` every large leaf also split over the data group,
+``parallel/fsdp.py``), and ``make_grad_fn`` / ``make_train_step(...,
+mesh=...)`` average the gradients (and the metrics, in the same buffer)
+over the data group between the backward and the optimizer, one flat
+buffer per dtype: an explicit all-reduce, since ``autograd.grad`` fires
+none of DDP's hooks, and one that a K-step CUDA graph captures over NCCL
+(its communicator is made by the key's eager first group, before the
+capture).  An FSDP leaf's gradient comes out of ``autograd.grad`` already
+averaged, as its block (the reduce-scatter of ``comm.full``), and stays out
+of that buffer.  Over gloo on the card K > 1 is refused: gloo's
+collectives cannot be captured.  ``grad_norm`` and the clip take the
+one-card norm (``optim.global_norm``).  A teacher split over the data group
+(``fsdp.shard_module``) gathers each weight where it reads it.
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ from ..models.gates import has_gates, sample_gates
 from ..models.model import Wav2Vec2Model, resolve_device
 from ..models.size import model_size
 from ..ops import kernel_launches
-from ..parallel.comm import all_reduce_grads
-from ..parallel.sharding import narrow, shard_train_state
+from ..parallel.comm import all_reduce_grads, full, full_numel
+from ..parallel.sharding import Block, narrow, shard_train_state
 from ..params import flatten_params, unflatten_params
 from .losses import distill_loss_unstacked
 from .optim import DistillOptimizer, OptState, global_norm
@@ -93,9 +98,8 @@ class TrainState:
     """Everything a step reads and updates in place: the student module,
     the projection and λ parameters, the optimizer state, the micro-step
     counter and the generator of the gates and dropout (on the device).
-    On a mesh (``mesh``), ``shards`` holds the block of every split
-    parameter, (dim, start, length, full length) by name; the other
-    parameters are whole on every rank."""
+    On a mesh (``mesh``), ``shards`` holds the ``Block`` of every split
+    parameter by name; the other parameters are whole on every rank."""
 
     student: Wav2Vec2Model
     projs: dict
@@ -104,7 +108,7 @@ class TrainState:
     step: int
     generator: torch.Generator
     mesh: Optional[object] = None
-    shards: Dict[str, Tuple[int, int, int, int]] = field(default_factory=dict)
+    shards: Dict[str, Block] = field(default_factory=dict)
 
     def named_params(self) -> Dict[str, torch.Tensor]:
         """Training parameters by dotted name: ``student.<state-dict key>``,
@@ -138,24 +142,30 @@ def init_train_state(
     seed: int = 0,
     device="cuda",
     mesh=None,
+    fsdp: bool = False,
+    projs: Optional[dict] = None,
 ) -> Tuple[TrainState, DistillOptimizer]:
     """A fresh state on ``device`` and its optimizer.
 
     The student is copied (the caller's module, which may share weights
     with the teacher, is left alone); λ1 = λ2 = 0; the projections are
-    initialised from ``seed`` (the identity for layer2layer), and the
+    ``projs`` (warm-started, on ``device``) or initialised from ``seed``
+    (the identity for layer2layer; drawn either way), and the
     state's generator on the device is seeded from the same seed (so every
     rank of a mesh draws the same gates and masks).  With a ``mesh`` the
-    state is placed on it (``parallel.sharding.shard_train_state``)."""
+    state is placed on it (``parallel.sharding.shard_train_state``; with
+    ``fsdp``, its leaves of at least ``fsdp.MIN_SHARD_ELEMS`` elements split
+    over the data group too)."""
     device = resolve_device(device)
     host_gen = torch.Generator().manual_seed(seed)
     student = copy.deepcopy(student).to(device)
     for p in student.parameters():
         p.requires_grad_(True)
-    projs = init_projections(
+    fresh = init_projections(
         cfg.distill_mode, cfg.distill_layer_groups, student.spec.embed_dim,
         teacher_embed_dim, generator=host_gen, device=device,
     )
+    projs = fresh if projs is None else projs
     for p in flatten_params(projs).values():
         p.requires_grad_(True)
     lambdas = None
@@ -178,7 +188,7 @@ def init_train_state(
     state = TrainState(student, projs, lambdas, None, 0, generator)
     state.opt_state = tx.init(state.named_params())
     if mesh is not None:
-        shard_train_state(state, mesh, tx)
+        shard_train_state(state, mesh, tx, fsdp)
     return state, tx
 
 
@@ -214,8 +224,9 @@ def _on_device(values: np.ndarray, device) -> torch.Tensor:
 
 def _teacher_numel(teacher: Wav2Vec2Model) -> int:
     """Teacher size = raw parameter count, ``dummy_weight`` included
-    (reference ``lightning.py:170``)."""
-    return sum(p.numel() for p in teacher.parameters())
+    (reference ``lightning.py:170``); of the whole teacher where FSDP
+    splits it."""
+    return sum(full_numel(p) for p in teacher.parameters())
 
 
 def _batch(batch, dtype: torch.dtype, device):
@@ -262,9 +273,16 @@ def _distill_forward(teacher, student, cfg, original, params, batch, target, gen
     return loss, metrics
 
 
-def _param_tree(state: TrainState) -> dict:
-    return {"student": unflatten_params(dict(state.student.named_parameters())),
-            "projs": state.projs, "lambdas": state.lambdas}
+def param_tree(state: TrainState) -> dict:
+    """The parameters the step reads outside the student's modules: the
+    gates' ``log_alpha`` and the projections, gathered where FSDP splits
+    them (``comm.full``); the student's other leaves as they are, read by
+    their modules."""
+    student = {n: full(p) if n.endswith("log_alpha") else p
+               for n, p in state.student.named_parameters()}
+    return {"student": unflatten_params(student),
+            "projs": unflatten_params({n: full(p) for n, p in flatten_params(state.projs).items()}),
+            "lambdas": state.lambdas}
 
 
 def _check_mesh(state: TrainState, mesh) -> None:
@@ -299,7 +317,7 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig, mesh=None):
                 target: Optional[torch.Tensor] = None):
         _check_mesh(state, mesh)
         student = state.student
-        params = _param_tree(state)
+        params = param_tree(state)
         if target is None:
             target = _on_device(np.array(_target_sparsity(cfg, state.step), np.float32),
                                 student.feature_extractor.dummy_weight.device)
@@ -315,14 +333,17 @@ def make_grad_fn(teacher: Wav2Vec2Model, cfg: DistillConfig, mesh=None):
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(named.items(), grads)}
         metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        over = None
         if mesh is not None:
-            reduced = all_reduce_grads({**grads, **{f"metrics/{k}": v for k, v in metrics.items()}},
+            # an FSDP block's gradient is already the data average (comm.full)
+            whole = {n: g for n, g in grads.items()
+                     if n not in state.shards or state.shards[n].data_dim is None}
+            reduced = all_reduce_grads({**whole, **{f"metrics/{k}": v for k, v in metrics.items()}},
                                        mesh.data_group, mesh.n_data)
-            grads = {n: reduced[n] for n in grads}
+            grads = {n: reduced.get(n, g) for n, g in grads.items()}
             metrics = {k: reduced[f"metrics/{k}"] for k in metrics}
-        split = [n in state.shards for n in grads] if state.shards else None
-        metrics["grad_norm"] = global_norm(list(grads.values()), split,
-                                           None if mesh is None else mesh.model_group)
+            over = [state.shards[n].groups(mesh) if n in state.shards else () for n in grads]
+        metrics["grad_norm"] = global_norm(list(grads.values()), over)
         return metrics, grads
 
     return grad_fn
@@ -558,7 +579,7 @@ def make_eval_step(teacher: Wav2Vec2Model, cfg: DistillConfig):
         target = _on_device(np.array(_target_sparsity(cfg, state.step), np.float32),
                             state.student.feature_extractor.dummy_weight.device)
         _, metrics = _distill_forward(
-            teacher, state.student, cfg, original, _param_tree(state), batch, target,
+            teacher, state.student, cfg, original, param_tree(state), batch, target,
             None, False, gates,
         )
         return metrics

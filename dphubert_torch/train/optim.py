@@ -68,23 +68,27 @@ def _norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def global_norm(tensors: List[torch.Tensor], split: Optional[List[bool]] = None,
-                group=None) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor], over: Optional[List[tuple]] = None) -> torch.Tensor:
     """sqrt(sum of squares) over all tensors, as a 0-dim fp32 tensor.
 
-    Under tensor parallelism (``group``, the model group, and ``split``
-    flagging the tensors that hold only this rank's block): the split
-    tensors' squares are summed over the group and the replicated ones
-    counted once, so every rank gets the one-card norm."""
-    if group is None or split is None or not any(split):
+    On a mesh (``over``: for each tensor the process groups that split it,
+    empty for a whole one): a block's squares are summed over the groups
+    that split it (the model group for a tensor-parallel leaf, the data
+    group for an FSDP one, both for HSDP) and a whole tensor is counted
+    once, so every rank gets the one-card norm."""
+    if over is None or not any(over):
         return _norm(tensors)
     from ..parallel.comm import sum_over
 
-    part = [t for t, s in zip(tensors, split) if s]
-    sq = sum_over(_norm(part).square(), group)
-    rest = [t for t, s in zip(tensors, split) if not s]
-    if rest:
-        sq = sq + _norm(rest).square()
+    classes: Dict[tuple, List[torch.Tensor]] = {}
+    for t, groups in zip(tensors, over):
+        classes.setdefault(tuple(groups), []).append(t)
+    sq = None
+    for groups, part in classes.items():
+        s = _norm(part).square()
+        for group in groups:
+            s = sum_over(s, group)
+        sq = s if sq is None else sq + s
     return sq.sqrt()
 
 
@@ -120,18 +124,18 @@ class DistillOptimizer:
         self.max_updates = max_updates
         self.clip_norm = clip_norm
         self.accum_grad = max(int(accum_grad), 1)
-        self.split_names: frozenset = frozenset()
-        self.norm_group = None
+        self.norm_groups: Dict[str, tuple] = {}
 
-    def shard_norm(self, split_names, group) -> None:
-        """The clip's norm over a tensor-parallel state: the parameters in
-        ``split_names`` hold this rank's block of the model ``group``
-        (``global_norm``)."""
-        self.split_names, self.norm_group = frozenset(split_names), group
+    def shard_norm(self, groups: Dict[str, tuple]) -> None:
+        """The clip's norm over a state on a mesh: ``groups`` gives, by
+        parameter name, the process groups whose ranks hold the blocks of
+        that parameter (``global_norm``); a name it lacks is whole."""
+        self.norm_groups = dict(groups)
 
     def norm(self, names: List[str], tensors: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of the tensors of parameters ``names``."""
-        return global_norm(tensors, [n in self.split_names for n in names], self.norm_group)
+        over = [self.norm_groups.get(n, ()) for n in names] if self.norm_groups else None
+        return global_norm(tensors, over)
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
         missing = sorted({param_label(n) for n in params} - set(self.base_lr))

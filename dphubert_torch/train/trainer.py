@@ -37,14 +37,15 @@ rows of each global batch (the loader's ``shard``), the step averages the
 gradients over the data group, the audio-seconds logged count the global
 batch, and a stop decided on any rank (SIGTERM, watchdog, deadline) is
 agreed by all at the dispatch boundary (one small all-reduce on the host,
-so no rank enters a collective the others have left).  Rank 0 logs, prints
-the validation loss (every rank runs its rows; the loss is averaged) and
-writes the checkpoints, which hold the one-card state (a tensor-parallel
-run gathers its split tensors first, on every rank); every rank passes a
-barrier once the last one is written.
+so no rank enters a collective the others have left).  With ``fsdp`` the
+student, its projections, their Adam moments and the frozen teacher are
+split over the data group as well (``parallel/fsdp.py``; with a model
+group, HSDP).  Rank 0 logs, prints the validation loss (every rank runs its
+rows; the loss is averaged) and writes the checkpoints, which hold the
+one-card state (a run that splits tensors gathers them first, on every
+rank); every rank passes a barrier once the last one is written.
 
-Not ported yet (ROADMAP queue 1): FSDP / HSDP (item 7b), LayerDrop, and the
-profiling hooks.
+Not ported yet (ROADMAP queue 1): LayerDrop and the profiling hooks.
 """
 
 from __future__ import annotations
@@ -63,9 +64,10 @@ import torch
 from ..interop.torch_ckpt import save_checkpoint
 from ..models.gates import compile_gates, has_gates
 from ..models.model import Wav2Vec2Model, resolve_device
+from ..parallel.fsdp import shard_module
 from ..parallel.mesh import agree_max, barrier, replicate
 from ..parallel.sharding import gather_full, gather_state_tensors
-from ..params import flatten_params, unflatten_params
+from ..params import unflatten_params
 from .checkpointing import (
     BackgroundSaver,
     RotatingCheckpointer,
@@ -79,6 +81,7 @@ from .distill_module import (
     init_train_state,
     make_eval_step,
     make_train_step,
+    param_tree,
     refuse_gloo_graphs,
     refuse_remat_graphs,
 )
@@ -193,12 +196,14 @@ def train(
     ckpt_keep: int = 3,
     device="cuda",
     mesh=None,
+    fsdp: bool = False,
 ) -> TrainState:
     """Train a copy of ``student`` against the frozen ``teacher`` (a module
     on ``device``) to ``cfg.max_updates`` updates; returns the final state.
     On a ``mesh`` every rank calls it with the same arguments, except the
     loaders, which yield this rank's rows; the teacher and the student take
-    rank 0's weights.
+    rank 0's weights, and with ``fsdp`` both are split over the data group
+    (the teacher in place).
 
     ``loader`` and ``valid_loader`` have ``epoch(e, skip=0)`` yielding
     ``(waveforms, lengths)`` numpy batches (``DistillDataLoader``).
@@ -219,17 +224,19 @@ def train(
     n_data = 1 if mesh is None else mesh.n_data
     layout = (n_data, 1 if mesh is None else mesh.n_model)
 
-    if mesh is not None:
-        replicate(teacher, mesh)
-    state, tx = init_train_state(student=student, cfg=cfg,
-                                 teacher_embed_dim=teacher.spec.embed_dim, seed=seed,
-                                 device=device, mesh=mesh)
+    projs = None
     if proj_state_dict is not None:
+        # warm-started projections (reference final_distill.py:93), placed on
+        # the mesh with the rest of the state
         projs = projections_from_state_dict(proj_state_dict, cfg.distill_mode,
                                             cfg.distill_layer_groups, device=device)
-        for p in flatten_params(projs).values():
-            p.requires_grad_(True)
-        state.projs = projs
+    if mesh is not None:
+        replicate(teacher, mesh)
+        if fsdp:
+            shard_module(teacher, mesh)
+    state, tx = init_train_state(student=student, cfg=cfg,
+                                 teacher_embed_dim=teacher.spec.embed_dim, seed=seed,
+                                 device=device, mesh=mesh, fsdp=fsdp, projs=projs)
 
     rotated = None
     if ckpt_backend == "rotated":
@@ -302,7 +309,7 @@ def train(
     why = None
 
     def _tensors():
-        """The one-card tensors of a tensor-parallel state (a collective:
+        """The one-card tensors of a state split on the mesh (a collective:
         every rank calls it); None where the state is whole."""
         return gather_state_tensors(state) if state.shards else None
 
@@ -551,8 +558,7 @@ def _run_validation(eval_fn, state: TrainState, valid_loader, step: int, mesh=No
     averaged over the data group and rank 0 prints it."""
     gates = None
     if has_gates(state.student.spec):
-        gates = compile_gates(state.student.spec,
-                              unflatten_params(dict(state.student.named_parameters())))
+        gates = compile_gates(state.student.spec, param_tree(state)["student"])
     losses = [eval_fn(state, (wave, lengths), gates)["loss"]
               for wave, lengths in valid_loader.epoch(0)]
     if mesh is not None and not mesh.is_main:
@@ -580,12 +586,14 @@ def export_student_checkpoint(state: TrainState, cfg: DistillConfig, path) -> No
     """Write the stage output as a portable ``{config, state_dict,
     distill_linear_projs}`` checkpoint, the input of the prune and export
     CLIs (and of the reference's tooling, through the .pth format).  On a
-    mesh every rank calls it (a tensor-parallel student is gathered first)
+    mesh every rank calls it (a split student is gathered first)
     and rank 0 writes."""
-    full = gather_full(state)
+    whole = gather_full(state)
     if state.mesh is not None and not state.mesh.is_main:
         return
-    sd = {k[len("student."):]: v.cpu().numpy() for k, v in full.items()
+    sd = {k[len("student."):]: v.cpu().numpy() for k, v in whole.items()
           if k.startswith("student.")}
-    projs = projections_to_state_dict(state.projs, cfg.distill_mode, cfg.distill_layer_groups)
+    projs = unflatten_params({k[len("projs."):]: v for k, v in whole.items()
+                              if k.startswith("projs.")})
+    projs = projections_to_state_dict(projs, cfg.distill_mode, cfg.distill_layer_groups)
     save_checkpoint(path, state.student.config, sd, projs)

@@ -9,10 +9,12 @@ harness: each rank a process with its own time limit, rendezvous through a
 * the dropout of a shard: the folded kernel seed and the global-shape
   activation draw give exactly the one-process mask's block;
 * a (2 data x 2 model) step with attention and activation dropout on
-  against the one-process step (HuBERT; WavLM data parallel), and against
-  the TPU package's step on a (data 2, model 2) mesh of the 8 virtual
-  devices (dropout off, the TPU step's gate draws injected): loss within
-  1e-5, every gathered parameter within 2e-5 after 3 steps;
+  against the one-process step (HuBERT and DPWavLM; DPWavLM also at (2 x 1)
+  and (1 x 2)), and against the TPU package's step on a (data 2, model 2)
+  mesh of the 8 virtual devices (dropout off, the TPU step's gate draws
+  injected): loss within 1e-5, every gathered parameter within 2e-5 after
+  3 steps; DPWavLM's table and GRU gradients at (1 x 2) against one
+  process's;
 * ``steps_per_call=2`` on two ranks bit for bit K = 1;
 * the loader's ``shard`` bit for bit the TPU package's;
 * checkpoints in the one-card format: saved at (2 x 2), resumed at (1 x 1)
@@ -44,6 +46,7 @@ from dphubert_tpu.train import distill_module as j_dm
 
 from tests.test_forward_parity import _tiny_w2v2_config, _tiny_wavlm_config
 from tests.test_torch_gates import PRUNE_FLAGS, jax_gate_draws, one_torch_thread  # noqa: F401
+from tests.torch_parallel_worker import ENTRY, run_grads
 from dphubert_torch.parallel.dryrun import check_ranks, run_steps, run_train, spawn
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -73,10 +76,11 @@ def _train_payload(exp_dir, **over):
 
 
 def _spawn(tmp, jobs, world, layout):
-    """``jobs`` in one gloo group of ``world`` ranks on the CPU; rank 0's
-    results."""
-    outs, results = spawn("jobs", world, tmp / "spawn", {"jobs": jobs}, layout, device="cpu",
-                          timeout=RANK_TIMEOUT_S, cwd=REPO)
+    """``jobs`` in one gloo group of ``world`` ranks on the CPU (the tests'
+    rank worker: the harness's jobs and ``grads``, ``load_state``); rank
+    0's results."""
+    outs, results = spawn("jobs", world, tmp / "spawn", {"jobs": jobs}, layout, entry=ENTRY,
+                          device="cpu", timeout=RANK_TIMEOUT_S, cwd=REPO)
     check_ranks(results)
     return outs[0]
 
@@ -99,29 +103,35 @@ def _close(got: dict, want: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_mesh_run():
-    """Three steps of the TPU package's distill step on a (data 2, model 2)
-    mesh (``tests/test_multidevice.py``'s layout), recording each step's
-    gate draws: the payload of the same steps for the port, the TPU
-    step's losses and its parameters after the last step."""
+def jax_mesh_steps(family="hubert", layout=(2, 2), place=None):
+    """Three steps of the TPU package's distill step of the tiny model on a
+    (data, model) mesh of the virtual devices (``tests/test_multidevice.py``'s
+    layouts; ``place(spec, mesh, teacher params, train params)`` -> both
+    placed, by default the teacher replicated and the tensor-parallel
+    layouts), recording each step's gate draws: the payload of the same
+    steps for the port, the TPU step's losses and its parameters after the
+    last step."""
     from dphubert_tpu.parallel.mesh import batch_sharding, create_mesh, replicate
     from dphubert_tpu.parallel.sharding import place_train_params
 
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg_t, cfg_s = _tiny_w2v2_config(), _tiny_w2v2_config(**PRUNE_FLAGS)
+    n = layout[0] * layout[1]
+    if len(jax.devices()) < n:
+        pytest.skip(f"needs {n} virtual devices")
+    tiny = _tiny_w2v2_config if family == "hubert" else _tiny_wavlm_config
+    cfg_t, cfg_s = tiny(), tiny(**PRUNE_FLAGS)
     jt, js = j_wav2vec2_model(**cfg_t), j_wav2vec2_model(**cfg_s)
     tp, sp = jt.init(jax.random.key(0)), js.init(jax.random.key(1))
     dcfg = j_dm.DistillConfig(**DISTILL)
     state, tx = j_dm.init_train_state(student=js, student_params=sp, cfg=dcfg,
                                       teacher_embed_dim=64, rng=jax.random.key(42))
     start = pt.train_params_from_jax(jax.tree.map(np.asarray, state.params))
-    mesh = create_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
-    params = place_train_params(js.spec, mesh, state.params)
+    mesh = create_mesh(n_data=layout[0], n_model=layout[1], devices=jax.devices()[:n])
+    if place is None:
+        teacher, params = replicate(mesh, tp), place_train_params(js.spec, mesh, state.params)
+    else:
+        teacher, params = place(js.spec, mesh, tp, state.params)
     state = state._replace(params=params, opt_state=tx.init(params))
     fn = j_dm.make_train_step(jt, js, dcfg, tx, donate=False)
-    teacher = replicate(mesh, tp)
     spec = pt.spec_from_config(**cfg_s)
     waves, gate_u, losses = _waves(3, 7), [], []
     for w in waves:
@@ -138,22 +148,45 @@ def jax_mesh_run():
 
 
 @pytest.fixture(scope="module")
-def four_ranks(tmp_path_factory, jax_mesh_run):
+def jax_mesh_run():
+    """The TPU package's three steps of the tiny HuBERT on a (data 2, model
+    2) mesh, dropout off (``jax_mesh_steps``)."""
+    return jax_mesh_steps()
+
+
+@pytest.fixture(scope="module")
+def jax_wavlm_mesh_run():
+    """The same for the tiny DPWavLM: its attention's heads, position-bias
+    rows and GRU gate split by XLA over ``model``."""
+    return jax_mesh_steps("wavlm")
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory, jax_mesh_run, jax_wavlm_mesh_run):
     """One group of 4 ranks as (2 data x 2 model): the dropout steps, the
     TPU-comparison steps, a 4-step trainer run and the same run stopped at
-    step 2 (its checkpoint)."""
+    step 2 (its checkpoint); DPWavLM's dropout steps and TPU-comparison
+    steps."""
     tmp = tmp_path_factory.mktemp("four_ranks")
     jobs = {"dropout": ("steps", _steps_payload()),
             "jax": ("steps", jax_mesh_run[0]),
             "full": ("train", _train_payload(tmp / "full")),
-            "half": ("train", _train_payload(tmp / "half", stop_at_step=2))}
+            "half": ("train", _train_payload(tmp / "half", stop_at_step=2)),
+            "wavlm_tp": ("steps", _steps_payload("wavlm")),
+            "wavlm_jax": ("steps", jax_wavlm_mesh_run[0])}
     return tmp, _spawn(tmp, jobs, 4, (2, 2))
+
+
+def _wavlm_grads_payload():
+    return _steps_payload("wavlm", waves=_waves(1, 2))
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory, four_ranks):
     """One group of 2 ranks as (2 data x 1 model): DPWavLM's dropout steps,
-    4 steps at K = 1 and at K = 2, and the (2 x 2) checkpoint resumed."""
+    4 steps at K = 1 and at K = 2, and the (2 x 2) checkpoint resumed; then
+    as (1 data x 2 model): DPWavLM's dropout steps and one step's
+    gradients."""
     tmp4, _ = four_ranks
     tmp = tmp_path_factory.mktemp("two_ranks")
     k_steps = _steps_payload(waves=_waves(4, 1))
@@ -161,7 +194,9 @@ def two_ranks(tmp_path_factory, four_ranks):
             "k1": ("steps", k_steps),
             "k2": ("steps", dict(k_steps, steps_per_call=2)),
             "resume": ("train", _train_payload(tmp / "resume",
-                                               resume=str(tmp4 / "half" / "ckpts" / "last.pt")))}
+                                               resume=str(tmp4 / "half" / "ckpts" / "last.pt"))),
+            "wavlm_1x2": ("steps", dict(_steps_payload("wavlm"), layout=(1, 2))),
+            "wavlm_grads_1x2": ("grads", dict(_wavlm_grads_payload(), layout=(1, 2)))}
     return tmp, _spawn(tmp, jobs, 2, (2, 1))
 
 
@@ -320,6 +355,49 @@ def test_dpwavlm_data_parallel_step_with_dropout_matches_one_process(two_ranks):
     _close(out["wavlm"], run_steps(_steps_payload("wavlm")), "DPWavLM (2 x 1) vs one process")
 
 
+@pytest.mark.parametrize("ranks,job,layout", [("four_ranks", "wavlm_tp", "(2 x 2)"),
+                                              ("two_ranks", "wavlm_1x2", "(1 x 2)")])
+def test_dpwavlm_tensor_parallel_step_with_dropout_matches_one_process(request, ranks, job,
+                                                                       layout):
+    """DPWavLM with its heads split over a model group of 2: each rank's 2
+    heads take their rows of the position bias and the GRU gate, the
+    kernels' seeds folded by the data and head offsets; dropout everywhere,
+    3 steps within 1e-5 (loss) and 2e-5 (every gathered parameter) of one
+    process, the generators in step."""
+    _, out = request.getfixturevalue(ranks)
+    got, want = out[job], run_steps(_steps_payload("wavlm"))
+    _close(got, want, f"DPWavLM {layout} vs one process")
+    assert torch.equal(got["generator"], want["generator"])
+    att = [n for n, b in got["shards"].items() if ".attention." in n]
+    assert len(att) == 3 * 7 and all(b.model_dim is not None for b in got["shards"].values())
+
+
+def test_dpwavlm_two_by_two_step_matches_the_tpu_mesh_step(four_ranks, jax_wavlm_mesh_run):
+    """DPWavLM's (2 x 2) step against the TPU package's on a (data 2, model
+    2) mesh of virtual devices (XLA splits the bias and the gate there),
+    dropout off, the TPU step's gate draws injected: 3 steps within 1e-5
+    (loss) and 2e-5 (parameters)."""
+    _, out = four_ranks
+    _close(out["wavlm_jax"], jax_wavlm_mesh_run[1], "DPWavLM (2 x 2) vs the TPU mesh step")
+
+
+def test_wavlm_table_and_gru_gradients_equal_one_process(two_ranks):
+    """At (1 x 2) each rank's heads touch their own columns of the bucket
+    table and rows of the GRU constant: after the *f* on the bias (once)
+    and on the gate, the table's, the GRU linear's and the GRU constant's
+    gradients equal one process's (within 1e-5 of each norm), in every
+    layer; so does the loss."""
+    _, out = two_ranks
+    got, want = out["wavlm_grads_1x2"], run_grads(_wavlm_grads_payload())
+    np.testing.assert_allclose(got["metrics"]["loss"], want["metrics"]["loss"], rtol=LOSS_RTOL)
+    names = [n for n in want["grads"] if "rel_attn_embed" in n or "gru_rel_pos" in n]
+    assert len(names) == 1 + 3 * 3  # the table; each layer's linear (w, b) and constant
+    for n in names:
+        g, w = got["grads"][n], want["grads"][n]
+        assert w.norm() > 0, n
+        assert (g - w).norm() <= 1e-5 * w.norm(), n
+
+
 def test_two_by_two_step_matches_the_tpu_mesh_step(four_ranks, jax_mesh_run):
     """The port's (2 x 2) step against the TPU package's on a (data 2, model
     2) mesh of virtual devices, dropout off, the TPU step's gate draws
@@ -339,8 +417,9 @@ def test_two_ranks_steps_per_call_two_is_bit_for_bit_one(two_ranks):
 
 
 def test_gloo_graphs_and_wavlm_tensor_parallel_are_refused():
-    """K > 1 on the card over gloo (its collectives cannot be captured), and
-    WavLM's attention split over a model group (ROADMAP item 7c)."""
+    """K > 1 on the card over gloo is refused (its collectives cannot be
+    captured).  WavLM under tensor parallelism no longer is: its test is
+    ``test_wavlm_set_shard_splits_heads_and_their_bias_rows``."""
 
     class GlooMesh:
         def backend(self, group=None):
@@ -350,12 +429,32 @@ def test_gloo_graphs_and_wavlm_tensor_parallel_are_refused():
         refuse_gloo_graphs(GlooMesh(), 2, "cuda")
     refuse_gloo_graphs(GlooMesh(), 1, "cuda")
     refuse_gloo_graphs(GlooMesh(), 2, "cpu")
-    model = pt.wav2vec2_model(device="cpu", **_tiny_wavlm_config())
+
+
+@pytest.mark.parametrize("keep,rows", [(None, [2, 3]), ([0, 1, 3], None), ([1, 3], [3])])
+def test_wavlm_set_shard_splits_heads_and_their_bias_rows(keep, rows):
+    """``WavLMSelfAttention.set_shard`` over a model group of 2 gives model
+    rank 1 the second half of the layer's heads and, as its bias and gate
+    rows, those heads' rows: of all four (unpruned), or of the kept heads
+    (pruned, ``remaining_heads``); 3 kept heads do not divide and the layer
+    stays whole (``layer_splits``).  Data parallel leaves the rows whole."""
+    from dphubert_torch.parallel.sharding import layer_splits
+
+    over = {} if keep is None else {"encoder_remaining_heads": [keep] * 3}
+    model = pt.wav2vec2_model(device="cpu", **_tiny_wavlm_config(**over))
     attention = model.encoder.transformer.layers[0].attention
     assert isinstance(attention, WavLMSelfAttention)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7c"):
-        attention.set_shard(Shard(n_model=2), True)
-    attention.set_shard(Shard(data_rank=1, n_data=2), False)  # data parallel is fine
+    split = layer_splits(model.spec, 2)[0][0]
+    assert split == (rows is not None)
+    attention.set_shard(Shard(model_rank=1, n_model=2), split)
+    H = len(keep or range(4))
+    if split:
+        assert (attention.heads, attention.head_offset) == (H // 2, H // 2)
+        assert attention._split_rows.tolist() == rows
+    else:
+        assert attention.heads == H and attention._split_rows is None
+    attention.set_shard(Shard(data_rank=1, n_data=2), False)
+    assert attention.heads == H and attention._split_rows is None
 
 
 def test_process_row_slice():

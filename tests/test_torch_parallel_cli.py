@@ -1,9 +1,9 @@
 """The port's parallel CLI on the CPU: ``cli.distill`` under ``python -m
-torch.distributed.run`` (gloo, 2 and 4 processes) with ``--num_data_shards``
-and ``--tensor_parallel``, the errors of a layout the run cannot hold and
-of ``--fsdp``, and a SIGTERM to one rank (tiny model, the synthetic corpus
-of ``tests/test_torch_pipeline.py``).  Every process has its own time
-limit."""
+torch.distributed.run`` (gloo, 2 and 4 processes) with ``--num_data_shards``,
+``--tensor_parallel`` and ``--fsdp``, ``--fsdp`` on one process, the errors
+of a layout the run cannot hold, and a SIGTERM to one rank (tiny model, the
+synthetic corpus of ``tests/test_torch_pipeline.py``).  Every process has
+its own time limit."""
 
 import json
 import os
@@ -68,6 +68,26 @@ def test_torchrun_four_processes_two_by_two_exits_0_and_exports_one_card(
     assert all(bool(torch.isfinite(o).all()) for o in outs)
 
 
+def test_torchrun_four_processes_tensor_parallel_plus_fsdp(corpus, teacher_ckpt, tmp_path):
+    """``--tensor_parallel 2 --fsdp`` on 4 processes (HSDP: a (2 x 2) mesh
+    whose large leaves are also split over the data ranks; the TPU CLI
+    test ``test_cli_distill_tp_plus_fsdp``): exit 0, finite losses logged,
+    and a one-card ``distilled.pth`` with finite weights that loads in one
+    process."""
+    _, tsv = corpus
+    exp = tmp_path / "tp_fsdp"
+    proc = _torchrun(4, _stage1_argv(tsv, teacher_ckpt, exp, "--tensor_parallel", "2",
+                                     "--fsdp"))
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    rows = [json.loads(r) for r in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert rows and np.isfinite(rows[-1]["loss"])
+    exported = load_checkpoint(exp / "ckpts" / "distilled.pth")
+    for k, v in exported["state_dict"].items():
+        assert np.isfinite(np.asarray(v)).all(), k
+    model_from_checkpoint(exported, device="cpu")  # strict: one-card shapes
+    assert torch.load(exp / "ckpts" / "last.pt", weights_only=True)["meta"]["layout"] == [2, 2]
+
+
 def test_tensor_parallel_larger_than_the_run_fails_loudly(corpus, teacher_ckpt, tmp_path):
     _, tsv = corpus
     proc = _torchrun(2, _stage1_argv(tsv, teacher_ckpt, tmp_path / "x",
@@ -77,18 +97,37 @@ def test_tensor_parallel_larger_than_the_run_fails_loudly(corpus, teacher_ckpt, 
 
 
 @pytest.mark.parametrize("flags,message", [
-    (("--fsdp",), "ROADMAP.*7b"),
     (("--tensor_parallel", "2"), "--tensor_parallel 2 needs at least 2 devices"),
     (("--num_data_shards", "2"), "--num_data_shards 2 needs 2 devices"),
 ])
 def test_refused_flags_on_one_process(corpus, teacher_ckpt, tmp_path, flags, message):
-    """``--fsdp`` names its ROADMAP item; a layout one process cannot hold
-    fails before any work."""
+    """A layout one process cannot hold fails before any work."""
     from dphubert_torch.cli import distill
 
     _, tsv = corpus
     with pytest.raises(SystemExit, match=message):
         distill.cli_main(_stage1_argv(tsv, teacher_ckpt, tmp_path / "x", *flags))
+
+
+def test_fsdp_on_one_process_trains_as_without_it(corpus, teacher_ckpt, tmp_path):
+    """``--fsdp`` on one process (one data rank: nothing to split, as the
+    TPU CLI at n_data = 1) runs stage 1 and ends bit for bit where the run
+    without it ends: the logged metrics and the exported weights."""
+    from dphubert_torch.cli import distill
+
+    _, tsv = corpus
+    runs = {}
+    for name, flags in (("plain", ()), ("fsdp", ("--fsdp",))):
+        exp = tmp_path / name
+        distill.cli_main(_stage1_argv(tsv, teacher_ckpt, exp, *flags))
+        rows = [json.loads(r) for r in (exp / "metrics.jsonl").read_text().splitlines()]
+        runs[name] = ([{k: v for k, v in r.items()
+                        if k not in ("elapsed", "steps_per_sec", "audio_sec_per_sec")}
+                       for r in rows], load_checkpoint(exp / "ckpts" / "distilled.pth"))
+    (rows_p, ck_p), (rows_f, ck_f) = runs["plain"], runs["fsdp"]
+    assert [r["step"] for r in rows_f] == [1, 2] and rows_f == rows_p
+    for k, v in ck_p["state_dict"].items():
+        assert np.array_equal(np.asarray(ck_f["state_dict"][k]), np.asarray(v)), k
 
 
 def test_sigterm_to_one_rank_stops_both_with_75(corpus, teacher_ckpt, tmp_path):

@@ -21,7 +21,9 @@ The kernels are built first (phase "card"); then, in the order given:
   decision);
 * ``pipeline``: the recipe through the CLIs;
 * ``parallel``: the smoke's "dp_nccl_world1" and "parallel_card" phases
-  (one NCCL rank as a mesh; two gloo ranks on the card).
+  (one NCCL rank as a mesh, the FSDP path on it eager and captured; gloo
+  ranks on the card: data and tensor parallelism, FSDP, HSDP and DPWavLM
+  under tensor parallelism, rows "parallel_card" and "fsdp_card").
 
 Each phase prints the smoke's JSON lines; a failed check raises.  Needs a
 CUDA card.
