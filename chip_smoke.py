@@ -34,23 +34,34 @@ full width with random weights from seeds:
   then, in the same process with the same seeds, on the general one; and
   the WavLM recipe through the CLIs (stage 1, prune, final distill, export,
   serving);
+* the training forward with LayerDrop (``forward(training=True)``) of
+  HuBERT Base and WavLM Base, gated, layer_drop 0.1 with layers 3 and 8
+  dropped by injected uniforms: fp32 card vs CPU, the dropped layers the
+  identity bit for bit, u = 1 the layer_drop 0 forward bit for bit, bf16 vs
+  fp32, 12 forward launches a call whatever is dropped, one backward, and
+  the bf16 forward timed at B = 8 x 15 s (phase "layerdrop");
+* ``dphubert_torch.utils.profiling`` on the stage-1 step: ``trace``
+  around 2 steps writes a Chrome trace; ``device_breakdown``'s kernel
+  families' shares of the busy time sum to it, and the packed kernels ran
+  as counted; ``Throughput`` over the timed segments (phase "profile");
 * wav2vec 2.0 Large (``run_large.sh``): a seeded ``wav2vec2_large`` written
   as a fairseq checkpoint and converted back with ``convert_from_fairseq``
   bit for bit, then served; ``wavlm_large`` served; the packed kernels at
   the Large step's shape (12 clips, 16 heads); the Large stage-1 step with
   per-layer remat held against the step without it (fp32, dropout on, the
-  same generator seed), then both timed in bf16 at B = 12 x 15 s;
+  same generator seed), then both timed in bf16 at B = 12 x 15 s, and both
+  as 4-step CUDA graphs (remat's recomputes replayed inside the graph);
 * the recipe script ``run_torch.sh`` itself, on the card, and its exported
   checkpoint served;
 * every timed step of the port's main paths (stage 1, the final distill,
-  DPWavLM on both routes, wav2vec 2.0 Large) also as a CUDA graph of 4
-  steps (``make_train_step(..., steps_per_call=4)``, the trainer's
-  ``--steps_per_dispatch 4``): from the same state and generator, two
+  DPWavLM on both routes, wav2vec 2.0 Large without and with remat) also
+  as a CUDA graph of 4 steps (``make_train_step(..., steps_per_call=4)``,
+  the trainer's ``--steps_per_dispatch 4``): from the same state and generator, two
   replays equal 8 eager steps bit for bit (parameters, moments, counters,
   generator, metrics), both timed in one process, with peak memory
-  (phase "graph_train"); on the recipes' ladders (stage 1's 12 batch
-  shapes at 160 s a batch; the first, middle and top of Large's 12 at 180
-  s, for the smoke's time) every key captured into the one shared pool
+  (phase "graph_train"); on the recipes' ladders (the first, middle and
+  top of stage 1's 12 batch shapes at 160 s a batch and of Large's 12 at
+  180 s, for the smoke's time) every key captured into the one shared pool
   and replayed in turn, with peak and reserved memory against eager's,
   and two keys interleaved bit for bit eager (phase "graph_keys"); stage
   1 through the CLI on two shapes with 4 groups
@@ -130,7 +141,7 @@ import torch.nn.functional as F
 
 import dphubert_torch as pt
 from dphubert_torch.models.components import attention_route, output_lengths
-from dphubert_torch.models.gates import gate_paths
+from dphubert_torch.models.gates import gate_paths, sample_gates
 from dphubert_torch.models.hardconcrete import EPS
 from dphubert_torch.ops import LAUNCH_COUNTERS, _build
 from dphubert_torch.ops.attention_common import kernel_body
@@ -193,7 +204,8 @@ from dphubert_torch.train.checkpointing import (
     save_train_state,
     snapshot_bytes,
 )
-from dphubert_torch.train.distill_module import GraphedSteps, refuse_remat_graphs
+from dphubert_torch.train.distill_module import GraphedSteps
+from dphubert_torch.utils import Throughput, device_breakdown, trace
 
 REPO = pathlib.Path(__file__).resolve().parent
 SR = 16000
@@ -292,6 +304,9 @@ LARGE_DIR = REPO / "build" / "smoke_large"
 # by O(1); the two differ only where cuDNN's backward sums in another order)
 REMAT_GRAD_TOL = 1e-4
 GRAPH_K = 4  # steps a dispatch on the graph paths (run_torch.sh's default)
+# the graph phases' timing, in turns with eager groups: segments of replays
+# (few: the smoke's time)
+GRAPH_TIMED_SEGMENTS, GRAPH_TIMED_REPLAYS = 2, 2
 
 
 def r2_all_attention_config() -> dict:
@@ -1228,7 +1243,7 @@ def phase_slice(label: str, model) -> dict:
     for dt, p in preds.items():
         p.extract(clips)  # warm
         seg = []
-        for _ in range(5):
+        for _ in range(3):
             t0 = time.perf_counter()
             for _ in range(2):
                 p.extract(clips)
@@ -1413,7 +1428,7 @@ def phase_final_distill_check() -> dict:
 
 
 def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: float,
-                steps_per_segment: int = 3, segments: int = 3):
+                steps_per_segment: int = 2, segments: int = 3):
     """Two warm steps, then ``segments`` timed segments of
     ``steps_per_segment`` steps ending in a synchronize; launch counts are
     set to 0 just before the timed steps and read just after, and must be
@@ -1427,6 +1442,8 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
     torch.cuda.synchronize()
     reset_launch_counts()
     seg = []
+    rate = Throughput()  # the same segments, read through utils.profiling
+    rate.step(0.0)
     for _ in range(segments):
         t0 = time.perf_counter()
         for _ in range(steps_per_segment):
@@ -1434,6 +1451,7 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
             history.append(metrics)
         torch.cuda.synchronize()
         seg.append(steps_per_segment * audio_per_step / (time.perf_counter() - t0))
+        rate.step(steps_per_segment * audio_per_step)
     counts = launch_counts()
     n = steps_per_segment * segments
     check(counts == {k: v * n for k, v in per_step.items()},
@@ -1444,6 +1462,7 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
             check(np.isfinite(v), f"{label} step {i}: {k} = {v}")
     fields = {"dtype": "bfloat16", "audio_seconds_per_step": audio_per_step, "steps_timed": n,
               "audio_sec_per_s": statistics.median(seg), "segments": seg,
+              "throughput_audio_sec_per_s": rate.audio_sec_per_sec,
               "step_s": audio_per_step / statistics.median(seg),
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
               "launches_per_step": {k: v / n for k, v in counts.items()},
@@ -1484,8 +1503,9 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
                         wavlm_attention_bwd_dbias=12, wavlm_attention_bwd_dkv_general=12)
         check(per_step == want, f"DPWavLM launches per step {per_step}, expected {want}")
     label = label or ("train" if family == "hubert" else "wavlm_train")
-    state, fields, hist = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
-                                      per_step, TRAIN_B * TRAIN_SECONDS)
+    step = make_train_step(teacher, cfg, tx)
+    state, fields, hist = timed_steps(label, step, state, batch, per_step,
+                                      TRAIN_B * TRAIN_SECONDS)
     gap = [m["sparsity_expected"] - m["sparsity_target"] for m in hist]
     lam1 = state.lambdas["lambda1"].item()
     # dual ascent: λ1's gradient is (s - t), so λ1 moves with its sign
@@ -1495,14 +1515,84 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
            "batch": [TRAIN_B, T], "L": L, "route": wavlm_route(L) if family == "wavlm" else None,
            **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
-    del state, tx, batch
+    if family == "hubert" and label == "train":
+        row["profile"] = phase_profile(step, state, batch, per_step, fields)
+    del state, tx, batch, step
     torch.cuda.empty_cache()
     graph = phase_graph_train(f"graph_{label}", teacher, student, cfg, 5, (TRAIN_B, T),
                               per_step, TRAIN_B * TRAIN_SECONDS, fields["peak_memory_bytes"])
     row["graph"] = {f"graph_{label}": graph}
-    if family == "hubert" and label == "train":  # run_torch.sh's 12 shapes at 160 s a batch
+    if family == "hubert" and label == "train":  # run_torch.sh's ladder at 160 s a batch
         row["graph"]["graph_keys_train"] = phase_graph_keys("graph_keys_train", teacher,
-                                                            student, cfg, 5, 160)
+                                                            student, cfg, 5, 160,
+                                                            rungs=LADDER_RUNGS)
+    return row
+
+
+PROFILE_DIR = REPO / "build" / "smoke_profile"
+PROFILE_STEPS = 2
+PACKED_KERNEL_NAMES = {"packed_attention_fwd": "attention_fwd_wgmma_kernel",
+                       "packed_attention_bwd_dq": "attention_bwd_dq_wgmma_kernel",
+                       "packed_attention_bwd_dkv": "attention_bwd_dkv_wgmma_kernel"}
+
+
+def phase_profile(step, state, batch, per_step: dict, fields: dict) -> dict:
+    """``dphubert_torch.utils.profiling`` on phase "train"'s stage-1 step
+    (its state, batch and step: bf16, B = 16 x 15 s, dropout on):
+    ``trace`` around 2 steps writes a Chrome trace (its path and size
+    printed); ``device_breakdown`` of that profile: the kernel families'
+    shares of the busy time sum to it within 1% (kernels that run at once
+    share their time; the kernel time over the busy time, and the kernels
+    that ran beside others, are printed), and the packed entries' tensor-core kernels
+    ran as often as their wrappers counted, 24 / 12 / 12 a step;
+    ``Throughput`` over the phase's timed segments (``timed_steps``) within
+    5% of the phase's own median audio-sec/s."""
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with trace(PROFILE_DIR) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+    counts = launch_counts()
+    check(counts == {k: PROFILE_STEPS * v for k, v in per_step.items()},
+          f"profile: launches {nonzero(counts)} over {PROFILE_STEPS} steps")
+    path = prof.trace_path
+    size = path.stat().st_size
+    check(path.parent == PROFILE_DIR and path.name.endswith(".pt.trace.json") and size > 0,
+          f"profile: trace file {path}, {size} bytes")
+    dev = device_breakdown(prof, steps=PROFILE_STEPS, top=1 << 30)
+    families = sum(dev["families_busy_ms"].values())
+    check(abs(families - dev["busy_ms"]) <= 0.01 * dev["busy_ms"],
+          f"profile: families {families} ms against busy {dev['busy_ms']} ms a step")
+    # kernels that ran beside others (their time less their share of busy)
+    concurrent = sorted(dev["top"], key=lambda k: k["busy_ms"] - k["ms"])[:8]
+    calls = {name: sum(k["calls"] for k in dev["top"] if kernel in k["name"])
+             for name, kernel in PACKED_KERNEL_NAMES.items()}
+    check(calls == {name: float(per_step[name]) for name in calls},
+          f"profile: packed kernels a step {calls}, the wrappers counted {nonzero(per_step)}")
+    own, rolled = fields["audio_sec_per_s"], fields["throughput_audio_sec_per_s"]
+    check(abs(rolled - own) <= 0.05 * own,
+          f"profile: Throughput {rolled} audio-sec/s against the phase's median {own}")
+    row = {"phase": "profile", "path": "train", "steps": PROFILE_STEPS,
+           "trace": str(path.relative_to(REPO)), "trace_bytes": size,
+           "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": dev["busy_ms"],
+           "device_idle_share": 1.0 - dev["busy_ms"] / wall_ms,
+           "kernel_ms_per_step": dev["kernel_ms"],
+           "kernel_over_busy": dev["kernel_ms"] / dev["busy_ms"],
+           "families_ms_per_step": dev["families_ms"],
+           "families_busy_ms_per_step": dev["families_busy_ms"],
+           "families_busy_over_busy": families / dev["busy_ms"],
+           "concurrent_kernels": [dict(k, name=k["name"][:120]) for k in concurrent
+                                  if k["ms"] > k["busy_ms"]],
+           "kernel_launches_per_step": dev["launches"], "packed_kernel_calls_per_step": calls,
+           "top_kernels": [dict(k, name=k["name"][:120]) for k in dev["top"][:10]],
+           "throughput_audio_sec_per_s": rolled, "phase_median_audio_sec_per_s": own,
+           "throughput_over_median": rolled / own, "card": nvidia_smi(), "launches": counts}
+    emit(row)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     return row
 
 
@@ -1570,6 +1660,145 @@ def phase_final_distill_step() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The training forward with LayerDrop
+# ---------------------------------------------------------------------------
+
+LAYERDROP_RATE = 0.1  # encoder_layer_drop of the LayerDrop phase
+LAYERDROP_DROPPED = (3, 8)  # the layers its injected uniforms drop
+LAYERDROP_B = 8  # the timed forward: 8 clips of 15 s
+
+
+def phase_layerdrop(family: str) -> dict:
+    """``Wav2Vec2Model.forward(training=True)`` with LayerDrop: HuBERT Base
+    or WavLM Base at full width, its config with all five prune flags and
+    gates sampled from numpy draws, every dropout rate 0 and
+    ``encoder_layer_drop`` 0.1; the injected uniforms drop layers 3 and 8.
+    At 2 clips of 2 s (lengths 32000, 24000): fp32 on the card against the
+    CPU (TF32 off) within MODEL_FP32_TOL; each dropped layer's output is its
+    input bit for bit (forward hooks), a kept one's is not; with u all
+    ones, bit for bit the forward of the same weights with layer_drop 0; bf16
+    against fp32 within MODEL_BF16_REL_TOL; exactly 12 forward launches a
+    call whatever is dropped (every layer is computed), and one backward of
+    mean(out^2) runs 12 of each backward entry.  Then the bf16 forward timed
+    at B = 8 x 15 s with its uniforms drawn from the generator on the card
+    (median of 5 calls; ``torch.no_grad`` off, as in training)."""
+    factory = pt.hubert_base if family == "hubert" else pt.wavlm_base
+    base = factory(device="cpu", generator=torch.Generator().manual_seed(0))
+    cfg = dict(base.config, **PRUNE_FLAGS, **NO_DROPOUT)
+    cfg["encoder_layer_drop"] = LAYERDROP_RATE
+    del base
+    model = pt.wav2vec2_model(device="cuda", generator=torch.Generator().manual_seed(31), **cfg)
+    spec = model.spec
+    n = spec.num_layers
+    u = torch.ones(n)
+    u[list(LAYERDROP_DROPPED)] = 0.05  # <= layer_drop: dropped
+    gate_u = gate_draws(spec, model, seed=32)
+
+    def gates_of(m):
+        return sample_gates(spec, unflatten_params(dict(m.named_parameters())), u=gate_u)
+
+    rng = np.random.default_rng(33)
+    wave = torch.from_numpy((0.1 * rng.standard_normal((2, 32000))).astype(np.float32))
+    lengths = torch.tensor([32000, 24000], dtype=torch.int32)
+
+    def forward(m, device, dtype=torch.float32, layer_drop_u=u, grad=False):
+        with torch.set_grad_enabled(grad):
+            out, _ = m.forward(wave.to(device, dtype), lengths.to(device), gates=gates_of(m),
+                               training=True, generator=torch.Generator(device=device),
+                               layer_drop_u=layer_drop_u)
+        return out
+
+    fwd = "packed_attention_fwd" if family == "hubert" else "wavlm_attention_fwd"
+    bwd = (("packed_attention_bwd_dq", "packed_attention_bwd_dkv") if family == "hubert"
+           else ("wavlm_attention_bwd_fused", "wavlm_attention_bwd_dkv"))
+    L = int(frames(spec, [2.0])[0])
+    check(family == "hubert" or wavlm_route(L) == "single", f"WavLM route at L = {L}")
+    ins, outs = {}, {}
+
+    def keep(i):
+        def hook(mod, args, out):  # returns None: the layer's output stands
+            ins[i], outs[i] = args[0], out[0]
+        return hook
+
+    hooks = [layer.register_forward_hook(keep(i))
+             for i, layer in enumerate(model.encoder.transformer.layers)]
+    reset_launch_counts()
+    card = forward(model, "cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for h in hooks:
+        h.remove()
+    check(counts == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}),
+          f"layerdrop {family}: launches {nonzero(counts)}, expected {n} x {fwd}")
+    # a dropped layer passes its input on unchanged; the next layer reads it
+    identity = {i: torch.equal(ins[i + 1], ins[i]) for i in range(n - 1)}
+    check(all(identity[i] == (i in LAYERDROP_DROPPED) for i in identity),
+          f"layerdrop {family}: layers whose output was their input {identity}")
+    check(all(not torch.equal(outs[i], ins[i]) for i in LAYERDROP_DROPPED),
+          f"layerdrop {family}: a dropped layer was not computed")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu = forward(cpu_model, "cpu")
+    del cpu_model
+    err = (card.cpu() - cpu).abs().max().item()
+    check(err <= MODEL_FP32_TOL, f"layerdrop {family}: fp32 card vs CPU {err}")
+    kept = pt.wav2vec2_model(device="cuda", **dict(cfg, encoder_layer_drop=0.0))
+    kept.load_state_dict(model.state_dict())
+    ones_equal = torch.equal(forward(model, "cuda", layer_drop_u=torch.ones(n)),
+                             forward(kept, "cuda", layer_drop_u=None))
+    check(ones_equal, f"layerdrop {family}: u = 1 differs from the layer_drop 0 forward")
+    del kept
+    half = forward(model, "cuda", torch.bfloat16).float()
+    bf16_rel = ((half - card).norm() / card.norm()).item()
+    check(bf16_rel <= MODEL_BF16_REL_TOL, f"layerdrop {family}: bf16 vs fp32 {bf16_rel}")
+    # one backward, fp32, every layer computed and differentiated
+    reset_launch_counts()
+    out = forward(model, "cuda", grad=True)
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(out.float().square().mean(), params, allow_unused=True)
+    torch.cuda.synchronize()
+    bwd_counts = launch_counts()
+    want = dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}, **dict.fromkeys(bwd, n))
+    check(bwd_counts == want, f"layerdrop {family} backward: launches {nonzero(bwd_counts)}")
+    check(all(g is None or bool(torch.isfinite(g).all()) for g in grads),
+          f"layerdrop {family}: non-finite gradient")
+    del out, grads
+    # time: bf16 at B = 8 x 15 s, the uniforms drawn on the card
+    T = int(TRAIN_SECONDS * SR)
+    big = torch.randn(LAYERDROP_B, T, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(34), dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    gates = gates_of(model)
+    reset_launch_counts()
+    times = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = model.forward(big, gates=gates, training=True, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(y).all()), f"layerdrop {family}: non-finite output")
+        del y
+    timed = launch_counts()
+    check(timed == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: 7 * n}),
+          f"layerdrop {family}: timed launches {nonzero(timed)}")
+    row = {"phase": "layerdrop", "family": family, "layer_drop": LAYERDROP_RATE,
+           "dropped": list(LAYERDROP_DROPPED), "check_batch": "2 clips of 2 s, lengths "
+           "(32000, 24000), fp32, every dropout rate 0", "L": L,
+           "fp32_card_vs_cpu_max_abs": err, "fp32_tol": MODEL_FP32_TOL,
+           "dropped_layers_identity": True, "u_ones_equals_layer_drop_0": ones_equal,
+           "bf16_vs_fp32_rel": bf16_rel, "bf16_rel_tol": MODEL_BF16_REL_TOL,
+           "launches_forward": nonzero(counts), "launches_backward": nonzero(bwd_counts),
+           "timed_batch": [LAYERDROP_B, T], "timed_dtype": "bfloat16",
+           "forward_ms": 1e3 * statistics.median(times[2:]),
+           "forward_ms_calls": [1e3 * t for t in times], "card": nvidia_smi()}
+    emit(row)
+    row["launches"] = add_counts((1, counts), (1, bwd_counts), (1, timed))
+    del model, big
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 # K-step CUDA graphs against eager steps, and the checkpoint path
 # ---------------------------------------------------------------------------
 
@@ -1624,7 +1853,7 @@ def phase_graph_train(label, teacher, student, cfg, seed, batch_shape, per_step,
     reads its own steps' scalars).
 
     Time (cuDNN's default algorithms, as the trainer runs): a fresh state
-    and a fresh capture, then 3 segments of 3 replays, and 3 segments of 4
+    and a fresh capture, then 2 segments of 2 replays, and 2 segments of 4
     eager steps, in turns.  ``max_memory_allocated`` of the graphed run
     alone (its eager group, its capture and a replay; the caller's eager
     run has its own), and the memory it reserves.
@@ -1710,13 +1939,13 @@ def phase_graph_train(label, teacher, student, cfg, seed, batch_shape, per_step,
     single = make_train_step(teacher, cfg, tx_a)
     a, _ = eager_group(single, a)  # warm
     eager_seg, graph_seg = [], []
-    for _ in range(3):
+    for _ in range(GRAPH_TIMED_SEGMENTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(GRAPH_TIMED_REPLAYS):
             b, m = graph_group(group, b)
         torch.cuda.synchronize()
-        graph_seg.append((time.perf_counter() - t0) / (3 * GRAPH_K))
+        graph_seg.append((time.perf_counter() - t0) / (GRAPH_TIMED_REPLAYS * GRAPH_K))
         t0 = time.perf_counter()
         a, _ = eager_group(single, a)
         torch.cuda.synchronize()
@@ -1763,13 +1992,13 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
     shapes, or the rungs of it that ``rungs`` indexes; dropout on, bf16).
 
     ``interleaved`` (``deterministic``): two keys, the top rung and a
-    short one, called A B A B A B (each key's first group eager and
-    captured, then two replays each, in turn) against the same 24 eager
-    single steps: bit for bit after every group, so no replay overwrites
-    what another graph left live.
+    short one, called A B A B (each key's first group eager and captured,
+    then a replay each, in turn) against the same 16 eager single steps:
+    bit for bit after every group, so no replay overwrites what another
+    graph left live.
 
     Memory (cuDNN's default algorithms, as the trainer runs): one eager
-    step on every rung (the eager peak), then all 12 keys captured into
+    step on every rung (the eager peak), then all its keys captured into
     the pool and each replayed once, in turn (timed as one cycle): peak
     and reserved memory against eager's, and what stays reserved once the
     allocator's cache is emptied (the graphs' pool and the live state).
@@ -1812,7 +2041,7 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
             b, tx_b = fresh()
             single = make_train_step(teacher, cfg, tx_a)
             group = make_train_step(teacher, cfg, tx_b, steps_per_call=GRAPH_K)
-            for call in range(6):
+            for call in range(4):
                 shape = keys[call % 2]
                 waves = stack(shape)
                 want = []
@@ -1826,9 +2055,9 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
                 for k, v in got.items():
                     check(torch.equal(v, torch.stack([m[k].float() for m in want])),
                           f"{label} interleaved group {call}: metric {k}")
-            check(len(group.graphs) == 2 and GraphedSteps.replays == 4,
+            check(len(group.graphs) == 2 and GraphedSteps.replays == 2,
                   f"{label}: {len(group.graphs)} graphs, {GraphedSteps.replays} replays")
-            row.update(interleaved_keys=keys, interleaved_groups=6, interleaved_replays=4,
+            row.update(interleaved_keys=keys, interleaved_groups=4, interleaved_replays=2,
                        interleaved_bit_exact_tensors=n_tensors)
             del a, b, tx_a, tx_b, single, group
             gc.collect()
@@ -1887,7 +2116,9 @@ def phase_graph_keys(label, teacher, student, cfg, seed, seconds_per_batch,
 
 
 CKPT_SAVES = 7  # timed background saves (and one more for the resume)
-LARGE_LADDER_RUNGS = (0, 6, 11)  # of run_large_torch.sh's 12: first, middle, top
+# of the recipes' 12 rungs, the first, middle and top (each holds about
+# the same audio, so each costs alike): the smoke's time
+LADDER_RUNGS = (0, 6, 11)
 
 
 def phase_ckpt(large: dict) -> dict:
@@ -2513,16 +2744,18 @@ def phase_large_train(converted) -> dict:
     """run_large.sh's stage-1 step on the card: the converted Large teacher,
     the gated student, bf16, B = 12 clips of 15 s (L = 749) with dropout on,
     a batch that stays on the card; timed without remat and with it (each
-    from a fresh state: median of 3 segments of 3 steps after 2 warm steps),
+    from a fresh state: median of 3 segments of 2 steps after 2 warm steps),
     with ``max_memory_allocated`` and exactly 48 / 24 / 24 packed launches a
     step (teacher 24 and student 24 forwards, 24 dq, 24 dkv) without remat
-    and 72 / 24 / 24 with it."""
+    and 72 / 24 / 24 with it; then both as 4-step CUDA graphs (phase
+    "graph_train", row "large_graphs" beside each other) and the ladder's
+    three rungs without remat (run_large_torch.sh's default)."""
     teacher, student = _large_models(converted)
     gen = torch.Generator(device="cuda").manual_seed(24)
     T = int(TRAIN_SECONDS * SR)
     batch = (torch.randn(LARGE_B, T, device="cuda", generator=gen), None)
     L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
-    runs, total = {}, dict.fromkeys(WRAPPERS, 0)
+    runs, total, graphed = {}, dict.fromkeys(WRAPPERS, 0), {}
     for remat in (False, True):
         cfg = DistillConfig(distill_layer_groups=LARGE_GROUPS, compute_dtype="bfloat16",
                             remat=remat)
@@ -2538,17 +2771,9 @@ def phase_large_train(converted) -> dict:
         state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
                                        per_step, LARGE_B * TRAIN_SECONDS)
         runs[label] = fields
-        if not remat:  # the background saver's decision for this state, and the graphs
+        if not remat:  # the background saver's decision for this state
             ckpt = {"bytes": snapshot_bytes(state), "fits": background_ckpt_fits(state)}
-            plain = (cfg, per_step, fields["peak_memory_bytes"])
-        else:  # a graph cannot replay remat's host-side generator calls: refused
-            try:
-                refuse_remat_graphs(cfg, GRAPH_K, "cuda")
-                refused = None
-            except ValueError as e:
-                refused = str(e)
-            check(refused is not None and "remat" in refused,
-                  "remat with steps_per_dispatch > 1 was not refused on the card")
+        graphed[remat] = (cfg, per_step, fields["peak_memory_bytes"])
         total = {k: total[k] + fields["launches"][k] for k in total}
         emit({"phase": label, "model": "wav2vec2_large teacher (converted from fairseq), "
                                         "gated wav2vec2_large student",
@@ -2561,20 +2786,31 @@ def phase_large_train(converted) -> dict:
           "step_s": {"plain": plain_["step_s"], "remat": remat_["step_s"]},
           "remat_time_ratio": remat_["step_s"] / plain_["step_s"],
           "peak_memory_bytes": {"plain": plain_["peak_memory_bytes"],
-                                "remat": remat_["peak_memory_bytes"]},
-          "remat_with_graphs_refused": refused})
+                                "remat": remat_["peak_memory_bytes"]}})
     del batch
     torch.cuda.empty_cache()
+    # both steps as K = 4 graphs: remat's recomputes draw their forwards'
+    # dropout from generators of their own inside the graph
+    graph = {}
+    for remat, label in ((False, "graph_large_train"), (True, "graph_large_train_remat")):
+        cfg, per_step, peak = graphed[remat]
+        graph[label] = phase_graph_train(label, teacher, student, cfg, 25, (LARGE_B, T),
+                                         per_step, LARGE_B * TRAIN_SECONDS, peak,
+                                         embed_dim=1024)
+    keys = ("eager_step_s", "graph_step_s", "graph_over_eager", "eager_peak_memory_bytes",
+            "graph_peak_memory_bytes", "graph_reserved_bytes")
+    plain_g, remat_g = graph["graph_large_train"], graph["graph_large_train_remat"]
+    emit({"phase": "large_graphs", "k": GRAPH_K, "batch": [LARGE_B, T],
+          "plain": {k: plain_g[k] for k in keys}, "remat": {k: remat_g[k] for k in keys},
+          "remat_over_plain_graph_step": remat_g["graph_step_s"] / plain_g["graph_step_s"],
+          "remat_over_plain_graph_peak": remat_g["graph_peak_memory_bytes"]
+          / plain_g["graph_peak_memory_bytes"], "card": nvidia_smi()})
     # run_large_torch.sh's default: K = 4 graphs without remat, on its
     # ladder at 180 s a batch: its first, middle and top rungs (the smoke's
     # time; every rung holds about 180 s of audio, so each costs alike)
-    cfg, per_step, peak = plain
-    graph = {"graph_large_train": phase_graph_train(
-        "graph_large_train", teacher, student, cfg, 25, (LARGE_B, T), per_step,
-        LARGE_B * TRAIN_SECONDS, peak, embed_dim=1024)}
-    graph["graph_keys_large"] = phase_graph_keys("graph_keys_large", teacher, student, cfg, 25,
-                                                 180, embed_dim=1024, interleaved=False,
-                                                 rungs=LARGE_LADDER_RUNGS)
+    graph["graph_keys_large"] = phase_graph_keys("graph_keys_large", teacher, student,
+                                                 graphed[False][0], 25, 180, embed_dim=1024,
+                                                 interleaved=False, rungs=LADDER_RUNGS)
     del teacher, student
     torch.cuda.empty_cache()
     return {"launches": total, **runs, "ckpt": ckpt, "graph": graph}
@@ -3131,6 +3367,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = phase_card()
+    laps = {}  # seconds by path, for the smoke's time budget
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+
+    lap("build")
     base = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
     base_spec = base.spec
     kernels = phase_kernels(base.spec)
@@ -3144,6 +3386,7 @@ def main() -> int:
     path_launches = {"serve": launch_counts()}
     graph_paths = {}  # the graph phases' rows, by path
     del base
+    lap("kernels_and_serve")
 
     cfg = json.loads(R2_CONFIG.read_text())
     reset_launch_counts()
@@ -3157,7 +3400,9 @@ def main() -> int:
     phase_train_check()
     train_row = phase_train()
     path_launches["train"] = train_row["launches"]
+    path_launches["profile"] = train_row["profile"]["launches"]
     graph_paths.update(train_row["graph"])
+    lap("train")
 
     # path 3: the final-distill step of a student on the flash route, then
     # the whole recipe through the CLIs (each stage resets and reads)
@@ -3168,6 +3413,7 @@ def main() -> int:
     pipeline = phase_pipeline()
     path_launches["pipeline"] = pipeline["launches"]
     graph_paths["pipeline"] = pipeline
+    lap("final_distill_and_pipeline")
 
     # path 4: DPWavLM: WavLM Base and the pruned WavLM student served, the
     # step checked on both routes, the timed bf16 step on the single route
@@ -3190,6 +3436,13 @@ def main() -> int:
     path_launches["wavlm_general_train"] = general_step["launches"]
     graph_paths.update(general_step["graph"])
     path_launches["wavlm_pipeline"] = phase_wavlm_pipeline()["launches"]
+    lap("wavlm")
+
+    # the training forward with LayerDrop (forward(training=True)), HuBERT
+    # Base and WavLM Base
+    for family in ("hubert", "wavlm"):
+        path_launches[f"layerdrop_{family}"] = phase_layerdrop(family)["launches"]
+    lap("layerdrop")
 
     # path 5: wav2vec 2.0 Large (run_large.sh): the packed kernels at its
     # shape, the fairseq import and serving (and wavlm_large served), the
@@ -3206,13 +3459,16 @@ def main() -> int:
     path_launches["large_train"] = large_train["launches"]
     graph_paths.update(large_train["graph"])
     shutil.rmtree(LARGE_DIR, ignore_errors=True)
+    lap("large")
 
     # path 6: the checkpoint path (sync write, background saver, rotation,
     # resume) on the Base stage-1 state; launches as single steps
     reset_launch_counts()
     phase_ckpt(large_train["ckpt"])
     path_launches["ckpt"] = launch_counts()
+    lap("ckpt")
     path_launches["recipe_driver"] = phase_recipe_driver()["launches"]
+    lap("recipe_driver")
 
     # path 7: parallel: one NCCL rank as a (1 x 1) mesh, eager and as a
     # captured 4-step graph, bit for bit the mesh-less step; two gloo ranks
@@ -3221,7 +3477,9 @@ def main() -> int:
     graph_paths["dp_nccl_world1"] = phase_dp_nccl_world1()
     # and (path 8) FSDP (2 x 1), HSDP (2 x 2) and DPWavLM at (1 x 2), by
     # the same ranks; the WavLM entries at the split step's 6 heads
+    lap("dp_nccl_world1")
     parallel = phase_parallel_card(base_spec)
+    lap("parallel_card")
     for path, row in parallel["rows"].items():
         path_launches[path] = row["launches"]
     for path, row in graph_paths.items():
@@ -3296,7 +3554,7 @@ def main() -> int:
     # bf16 on the tensor cores: every entry
     bodies = {e["name"]: e["body"] for e in line}
     check(set(bodies.values()) == {"wgmma"}, f"bf16 bodies of the entries: {bodies}")
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "seconds_by_path": laps})
     print(smi, flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,8 +73,7 @@ def add_common_training_args(parser: ArgumentParser) -> None:
     parser.add_argument("--steps_per_dispatch", default=1, type=int,
                         help="K consecutive same-shape batches per dispatch: one CUDA "
                         "graph of K steps on the card (K eager steps on the CPU).  The "
-                        "batcher forms runs of K; a resume needs the same K.  Not with "
-                        "--remat on the card.")
+                        "batcher forms runs of K; a resume needs the same K.")
     parser.add_argument("--log_interval", default=50, type=int)
     parser.add_argument("--learning_rate", default=0.0002, type=float)
     parser.add_argument("--weight_decay", default=0.0, type=float)

@@ -21,9 +21,10 @@ nested dict of HardConcrete gates, keyed as the TPU package's gate tree
 (``models/gates.py``); both are applied where the TPU package applies them.
 With no generator there is no dropout, and with no gates none is applied,
 as in the TPU package's eval path.  ``remat`` checkpoints each encoder
-layer (``remat_layer``), as the TPU package checkpoints each layer.
-LayerDrop is not ported (it only acts in ``forward(training=True)``, which
-raises).
+layer (``remat_layer``), as the TPU package checkpoints each layer, also
+inside a captured CUDA graph (``RematReplay``).  LayerDrop acts in the
+training forward only (``Transformer.forward``); distillation
+(``get_intermediate_outputs``) sees every layer.
 
 Parallel training (``parallel/sharding.py``) gives the modules that draw
 dropout a ``Shard``: this rank's block of the global batch's rows, and, on
@@ -46,8 +47,10 @@ whole one as it is.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -752,6 +755,71 @@ class EncoderLayer(nn.Module):
         return x, position_bias
 
 
+class RematReplay:
+    """What ``remat_layer`` needs to run inside a CUDA graph capture, for
+    one captured group of steps (``GraphedSteps``).
+
+    A checkpointed layer's recompute must draw the numbers its forward
+    drew; eagerly, ``remat_layer`` sets the generator's state back on the
+    host, which a capture cannot do (the state is read at each replay, on
+    the card).  So the recompute draws from a generator of its own instead:
+    * in the key's eager group (``record``), the step generator's offset at
+      each checkpointed layer's forward, from the group's start
+      (``offsets``; eager and captured steps advance the offset alike);
+    * before the capture (``register``), one generator for each of them,
+      registered with the graph; inside the capture each layer's recompute
+      draws from its own (``take``), swapped in with
+      ``graphsafe_set_state`` and swapped out again after;
+    * before each replay (``prepare``), each of them takes the step
+      generator's seed and its offset plus the layer's ``offsets`` entry:
+      on the card the recompute then starts where the forward's draws
+      started, and the step generator moves as in eager steps."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.start = generator.get_offset()
+        self.offsets: List[int] = []
+        self.states: Optional[List[torch.Generator]] = None
+        self.taken = 0
+
+    def record(self) -> None:
+        self.offsets.append(self.generator.get_offset() - self.start)
+
+    def register(self, graph) -> None:
+        self.states = [torch.Generator(device=self.generator.device) for _ in self.offsets]
+        for g in self.states:
+            graph.register_generator_state(g)
+
+    def take(self) -> torch.Generator:
+        if self.states is None or self.taken == len(self.states):
+            raise RuntimeError(
+                f"the capture checkpointed more layers than its eager group recorded "
+                f"({len(self.offsets)})")
+        self.taken += 1
+        return self.states[self.taken - 1]
+
+    def prepare(self) -> None:
+        state, base = self.generator.get_state(), self.generator.get_offset()
+        for g, offset in zip(self.states, self.offsets):
+            g.set_state(state)
+            g.set_offset(base + offset)
+
+
+_remat = threading.local()  # .replay: the RematReplay of the group being run
+
+
+@contextlib.contextmanager
+def remat_replay(replay: Optional[RematReplay]):
+    """Give ``replay`` to every ``remat_layer`` call of the block (on this
+    thread): recorded in an eager group, taken from in a capture."""
+    prev = getattr(_remat, "replay", None)
+    _remat.replay = replay
+    try:
+        yield
+    finally:
+        _remat.replay = prev
+
+
 def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias):
     """``layer(x, lengths, gates, generator, position_bias)`` under
     per-layer activation checkpointing (the TPU package's checkpoint
@@ -766,22 +834,40 @@ def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias
     forward, set again for the recompute, and the state the backward found
     is put back afterwards (also when the recompute stops early): the
     recompute draws exactly the forward's numbers, and the generator ends
-    the step where a step without remat leaves it.  WavLM's position bias
-    is an output of layer 0's checkpointed call and an input of every later
-    one, so every layer's bias gradient still flows into layer 0's table."""
-    state = generator.get_state() if generator is not None else None
+    the step where a step without remat leaves it.  Inside a CUDA graph
+    capture the recompute draws from its own generator of the group's
+    ``RematReplay`` instead (``remat_replay``), which each replay sets to
+    the same numbers.  WavLM's position bias is an output of layer 0's
+    checkpointed call and an input of every later one, so every layer's
+    bias gradient still flows into layer 0's table."""
+    replay = getattr(_remat, "replay", None)
+    capturing = (generator is not None and generator.device.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
+    if capturing:
+        if replay is None:
+            raise RuntimeError("remat inside a CUDA graph capture needs the group's "
+                               "RematReplay (remat_replay; GraphedSteps gives it)")
+        get, put = generator.graphsafe_get_state, generator.graphsafe_set_state
+        state = replay.take()
+    elif generator is not None:
+        if replay is not None and generator is replay.generator:
+            replay.record()
+        get, put = generator.get_state, generator.set_state
+        state = get()
+    else:
+        state = None
     calls = [0]
 
     def run(x, position_bias):
         calls[0] += 1
         if state is None or calls[0] == 1:
             return layer(x, lengths, gates, generator, position_bias)
-        found = generator.get_state()
-        generator.set_state(state)
+        found = get()
+        put(state)
         try:
             return layer(x, lengths, gates, generator, position_bias)
         finally:
-            generator.set_state(found)
+            put(found)
 
     # every random number of the layer comes from ``generator``
     return torch.utils.checkpoint.checkpoint(run, x, position_bias, use_reentrant=False,
@@ -795,6 +881,7 @@ class Transformer(nn.Module):
         super().__init__()
         self.layer_norm_first = spec.transformer_layer_norm_first
         self.dropout = spec.dropout
+        self.layer_drop = spec.layer_drop
         self.pos_conv_embed = ConvolutionalPositionalEmbedding(
             spec.embed_dim, spec.pos_conv_kernel, spec.pos_conv_groups
         )
@@ -825,11 +912,32 @@ class Transformer(nn.Module):
                 break
         return outs
 
-    def forward(self, x, lengths):
-        x = self._preprocess(x)
+    def forward(self, x, lengths, gates=None, generator=None, layer_drop_u=None):
+        """The final hidden state (after the final LayerNorm in the post-norm
+        layout), with LayerDrop in training: with a ``generator`` and
+        ``layer_drop`` > 0, layer i's output is kept where its uniform
+        ``u[i] > layer_drop`` and its input passes on otherwise (the TPU
+        package's ``transformer_forward``).  Every layer is computed, so the
+        forward has no branch on ``u`` and no host sync: a dropped layer's
+        output is its input bit for bit, and WavLM's position bias is taken
+        from the computed layer either way.  ``u`` is drawn on the device
+        from ``generator``, one a layer, or injected as ``layer_drop_u``
+        (``(num_layers,)``; as ``hardconcrete.sample_mask`` takes ``u``)."""
+        x = self._preprocess(x, generator)
+        n = len(self.layers)
+        drop = generator is not None and self.layer_drop > 0.0
+        if drop and layer_drop_u is None:
+            layer_drop_u = torch.rand((n,), generator=generator, device=x.device)
+        elif drop:
+            layer_drop_u = torch.as_tensor(layer_drop_u, dtype=torch.float32).to(x.device)
+            if tuple(layer_drop_u.shape) != (n,):
+                raise ValueError(f"layer_drop_u must have shape ({n},), got "
+                                 f"{tuple(layer_drop_u.shape)}")
         position_bias = None
-        for layer in self.layers:
-            x, position_bias = layer(x, lengths, position_bias=position_bias)
+        for i, layer in enumerate(self.layers):
+            y, position_bias = layer(x, lengths, _gate(gates, "layers", str(i)), generator,
+                                     position_bias)
+            x = torch.where(layer_drop_u[i] > self.layer_drop, y, x) if drop else y
         if not self.layer_norm_first:
             x = self.layer_norm(x)
         return x
@@ -863,9 +971,10 @@ class Encoder(nn.Module):
             x, lengths, num_layers, gates, generator, remat
         )
 
-    def forward(self, features, lengths):
-        x, lengths = self._preprocess(features, lengths)
-        return self.transformer(x, lengths)
+    def forward(self, features, lengths, gates=None, generator=None, layer_drop_u=None):
+        """The final hidden state; LayerDrop as ``Transformer.forward``."""
+        x, lengths = self._preprocess(features, lengths, generator)
+        return self.transformer(x, lengths, gates, generator, layer_drop_u)
 
 
 # ---------------------------------------------------------------------------

@@ -97,21 +97,28 @@ class Wav2Vec2Model(nn.Module):
         waveforms: torch.Tensor,
         lengths: Optional[torch.Tensor] = None,
         *,
+        gates: Optional[dict] = None,
         training: bool = False,
+        generator: Optional[torch.Generator] = None,
+        layer_drop_u: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Final encoder output (through the aux head if configured), in
-        eval mode."""
-        if training:
-            raise NotImplementedError(
-                "forward(training=True) needs LayerDrop (the TPU package's "
-                "components.py:642-652), which is not ported: the distill step "
-                "runs extract_features (ROADMAP.md, queue 1: \"LayerDrop in "
-                "Wav2Vec2Model.forward(training=True)\")"
-            )
+        """Final encoder output (through the aux head if configured) and
+        the valid output lengths (the TPU package's ``forward``).
+
+        ``gates`` and ``training`` as in ``extract_features``; in training
+        with a ``generator`` dropout is on and LayerDrop applies
+        (``Transformer.forward``; its per-layer uniforms drawn from
+        ``generator`` or injected as ``layer_drop_u``).  No generator, no
+        dropout and no LayerDrop, as the TPU package without an rng."""
+        if gates is None and training and has_gates(self.spec):
+            raise ValueError("spec has HardConcrete gates; pass gates= (see sample_gates)")
+        generator = generator if training else None
+        if layer_drop_u is not None and generator is None:
+            raise ValueError("layer_drop_u applies in training with a generator")
         if self.spec.normalize_waveform:
             waveforms = components.normalize_waveform(waveforms, lengths)
-        x, lengths = self.feature_extractor(waveforms, lengths)
-        x = self.encoder(x, lengths)
+        x, lengths = self.feature_extractor(waveforms, lengths, gates)
+        x = self.encoder(x, lengths, gates, generator, layer_drop_u)
         if self.spec.aux_num_out is not None:
             x = self.aux(x)
         return x, lengths

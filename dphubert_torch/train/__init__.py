@@ -11,9 +11,10 @@ from .distill_module import (
     make_grad_fn,
     make_train_step,
 )
-from .losses import cosine_similarity, distill_loss_unstacked
+from .losses import cosine_similarity, distill_loss, distill_loss_unstacked
 from .optim import DistillOptimizer
 from .projections import (
+    apply_projections,
     flatten_groups,
     init_projections,
     parse_layer_groups,
@@ -37,10 +38,12 @@ __all__ = [
     "save_train_state",
     "train",
     "cosine_similarity",
+    "distill_loss",
     "distill_loss_unstacked",
     "linear_decay_factor",
     "tri_stage_factor",
     "parse_layer_groups",
+    "apply_projections",
     "flatten_groups",
     "init_projections",
     "projections_to_state_dict",

@@ -26,9 +26,9 @@ counterpart in eager PyTorch.
 one dispatch (its ``lax.scan``): on the CPU K eager steps, on the card one
 CUDA graph of K whole steps per (batch shape, lengths present,
 accumulation phase), replayed with each step's scalars (``step_scalars``)
-copied in beside the batch.  ``remat`` with K > 1 is refused on the card:
-``remat_layer`` sets the generator's state on the host, which a graph
-cannot replay (ROADMAP queue 1).
+copied in beside the batch.  With ``remat`` each captured recompute draws
+its forward's numbers from a generator of its own, which every replay sets
+(``components.RematReplay``).
 
 Parallel (``parallel/``): ``init_train_state(..., mesh=...)`` places the
 state on a (data x model) mesh (``sharding.shard_train_state``: rank 0's
@@ -57,6 +57,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.components import RematReplay, remat_replay
 from ..models.gates import has_gates, sample_gates
 from ..models.model import Wav2Vec2Model, resolve_device
 from ..models.size import model_size
@@ -393,16 +394,6 @@ def refuse_gloo_graphs(mesh, steps_per_call: int, device) -> None:
             "collectives; pass --steps_per_dispatch 1 over gloo")
 
 
-def refuse_remat_graphs(cfg: DistillConfig, steps_per_call: int, device) -> None:
-    """Raise for ``remat`` with K > 1 on the card: ``remat_layer`` sets the
-    generator's state on the host, which a CUDA graph cannot replay."""
-    if steps_per_call > 1 and cfg.remat and torch.device(device).type == "cuda":
-        raise ValueError(
-            "remat with steps_per_dispatch > 1 is not supported on the card: remat_layer "
-            "sets the generator's state on the host, which a CUDA graph cannot replay; "
-            "pass --steps_per_dispatch 1 with --remat")
-
-
 def _plan(cfg: DistillConfig, tx: DistillOptimizer, state: TrainState, k: int) -> np.ndarray:
     """(k, n) float32: the scalars of the next k micro-steps, the host
     counters moved on a copy as the steps will move them."""
@@ -430,6 +421,7 @@ class _Graph:
     scalars: torch.Tensor
     out: Optional[torch.Tensor] = None
     launches: Optional[Dict[str, int]] = None  # kernel launches a replay runs
+    remat: Optional[RematReplay] = None  # the recomputes' generators (remat)
 
 
 class GraphedSteps:
@@ -447,7 +439,10 @@ class GraphedSteps:
       update count, the phase and the generator are checked unchanged;
     * the state's generator is registered with every graph, so each replay
       draws fresh gates, dropout masks and kernel seeds from the offset the
-      generator holds at that replay;
+      generator holds at that replay; with ``remat``, so is one generator
+      for each checkpointed layer's recompute, set before each replay to
+      draw what its forward drew (``components.RematReplay``, filled from
+      the eager group);
     * every graph allocates from one shared pool: the groups replay one at
       a time on one stream, and each graph's last operations copy its
       metrics into its own buffer outside the pool;
@@ -512,7 +507,6 @@ class GraphedSteps:
             g = _Graph(None, waves, lengths, scalars)
             self._run(state, g)
             return state, self._metrics(g.out)
-        refuse_remat_graphs(self.cfg, self.k, device)
         refuse_gloo_graphs(self.mesh, self.k, device)
         key = (tuple(waves.shape), waves.dtype, lengths is None, state.opt_state.mini_step)
         g = self.graphs.get(key)
@@ -522,6 +516,8 @@ class GraphedSteps:
         if lengths is not None:
             g.lengths.copy_(lengths)
         g.scalars.copy_(scalars)
+        if g.remat is not None:
+            g.remat.prepare()
         g.graph.replay()
         GraphedSteps.replays += 1
         GraphedSteps.replayed = _add_counts(GraphedSteps.replayed, g.launches)
@@ -540,7 +536,8 @@ class GraphedSteps:
                    scalars.clone())
         compute = torch.cuda.current_stream(waves.device)
         self.stream.wait_stream(compute)
-        with torch.cuda.stream(self.stream):
+        replay = RematReplay(state.generator) if self.cfg.remat else None
+        with torch.cuda.stream(self.stream), remat_replay(replay):
             self._run(state, g)
         compute.wait_stream(self.stream)
         metrics = self._metrics(g.out.clone())
@@ -554,14 +551,21 @@ class GraphedSteps:
         opt.mini_step = key[-1]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
+        if replay is not None:
+            replay.register(graph)
         counted = kernel_launches()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream), \
+                    remat_replay(replay):
                 self._run(state, g)
         finally:
             state.step, opt.count, opt.mini_step = before[:3]
         if not torch.equal(state.generator.get_state(), before[3]):
             raise RuntimeError("capturing the training steps moved the generator")
+        if replay is not None and replay.taken != len(replay.offsets):
+            raise RuntimeError(f"the capture checkpointed {replay.taken} layers, its eager "
+                               f"group {len(replay.offsets)}")
+        g.remat = replay
         g.launches = {n: v - counted[n] for n, v in kernel_launches().items() if v != counted[n]}
         GraphedSteps.captured = _add_counts(GraphedSteps.captured, g.launches)
         g.graph = graph

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def parse_layer_groups(distill_layers: str) -> Tuple[Tuple[int, ...], ...]:
@@ -65,6 +66,35 @@ def init_projections(
             gp[str(li)] = {"weight": w.to(device), "bias": b.to(device)}
         return {"groups": gp}
     raise ValueError(f"Invalid distill mode: {mode}")
+
+
+def apply_projections(
+    proj_params: dict,
+    mode: str,
+    groups: Sequence[Sequence[int]],
+    student_hiddens: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Project the chosen student layers to the teacher's width and stack
+    them to (batch, n_distill_layers, time, teacher_dim) (reference
+    ``lightning.py:254-263``): ``layer2layer`` takes group g's layers
+    through its shared Linear, ``predlayer`` the last layer through each
+    slot's Linear and exact GELU."""
+    outs = []
+    if mode == "layer2layer":
+        for gi, g in enumerate(groups):
+            p = proj_params["groups"][str(gi)]
+            for layer_idx in g:
+                h = student_hiddens[layer_idx]
+                outs.append(F.linear(h, p["weight"].to(h.dtype), p["bias"].to(h.dtype)))
+    elif mode == "predlayer":
+        last = student_hiddens[-1]
+        for li in range(len(flatten_groups(groups))):
+            p = proj_params["groups"][str(li)]
+            outs.append(F.gelu(F.linear(last, p["weight"].to(last.dtype),
+                                        p["bias"].to(last.dtype))))
+    else:
+        raise ValueError(f"Invalid distill mode: {mode}")
+    return torch.stack(outs, dim=1)
 
 
 def projections_to_state_dict(

@@ -44,8 +44,6 @@ group, HSDP).  Rank 0 logs, prints the validation loss (every rank runs its
 rows; the loss is averaged) and writes the checkpoints, which hold the
 one-card state (a run that splits tensors gathers them first, on every
 rank); every rank passes a barrier once the last one is written.
-
-Not ported yet (ROADMAP queue 1): LayerDrop and the profiling hooks.
 """
 
 from __future__ import annotations
@@ -83,7 +81,6 @@ from .distill_module import (
     make_train_step,
     param_tree,
     refuse_gloo_graphs,
-    refuse_remat_graphs,
 )
 from .projections import projections_from_state_dict, projections_to_state_dict
 
@@ -214,7 +211,6 @@ def train(
     if ckpt_backend not in CKPT_BACKENDS:
         raise ValueError(f"ckpt_backend must be one of {CKPT_BACKENDS}, got {ckpt_backend!r}")
     K = max(int(steps_per_dispatch), 1)
-    refuse_remat_graphs(cfg, K, device)
     refuse_gloo_graphs(mesh, K, device)
     is_main = mesh is None or mesh.is_main
     exp_dir = pathlib.Path(exp_dir)

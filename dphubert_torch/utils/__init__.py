@@ -1,3 +1,4 @@
 from .grad import grad_multiply
+from .profiling import Throughput, device_breakdown, trace
 
-__all__ = ["grad_multiply"]
+__all__ = ["Throughput", "device_breakdown", "grad_multiply", "trace"]

@@ -6,13 +6,15 @@
 #
 # REMAT defaults to 0: on an H100 80GB HBM3 the Large stage-1 step at
 # B = 12 x 15 s in bf16 fits without per-layer activation checkpointing,
-# which would only add one student forward a step (PERF.md, "Large step").
-# Set REMAT=1 to trade that time for activation memory (a larger
-# SECONDS_PER_BATCH, or a smaller card); it runs one step a dispatch, since
-# a CUDA graph cannot replay remat's generator calls (run_torch.sh).
-# Without remat the default is run_torch.sh's STEPS_PER_DISPATCH=4: all 12
-# batch shapes at 180 s a batch captured as 4-step graphs fit on an H100
-# 80GB (chip_smoke.py phase "graph_keys", PERF.md section 5).
+# which adds one student forward a step. As 4-step CUDA graphs (the
+# default STEPS_PER_DISPATCH=4, with or without remat) remat cost 1.18x
+# the step time (0.267 against 0.227 s) and saved half the memory (peak
+# 13.9 against 26.5 GB, one key reserving 19.2 against 32.3 GB) on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase "large_graphs",
+# PERF.md section 6). Set REMAT=1 to trade that time for activation
+# memory (a larger SECONDS_PER_BATCH, or a smaller card). Without remat
+# all 12 batch shapes at 180 s a batch captured as 4-step graphs fit on
+# an H100 80GB (chip_smoke.py phase "graph_keys", PERF.md section 5).
 # NPROC=n runs each training stage on n processes (run_torch.sh).
 set -euo pipefail
 

@@ -51,13 +51,7 @@ fi
 extra_flags=()
 [ "${REMAT:-0}" = 1 ] && extra_flags+=(--remat)
 ckpt_backend=${CKPT_BACKEND:-rotated}         # rotated: keep-3 step files; last: last.pt
-# a CUDA graph cannot replay remat's host-side generator calls, so the
-# card refuses --remat with K > 1: REMAT=1 defaults to one step a dispatch
-if [ "${REMAT:-0}" = 1 ]; then
-  steps_per_dispatch=${STEPS_PER_DISPATCH:-1}
-else
-  steps_per_dispatch=${STEPS_PER_DISPATCH:-4}
-fi
+steps_per_dispatch=${STEPS_PER_DISPATCH:-4}   # K steps a CUDA graph, with or without remat
 runtime_flags=(--steps_per_dispatch "$steps_per_dispatch" --ckpt_backend "$ckpt_backend")
 
 pruning_units="conv,head,interm"

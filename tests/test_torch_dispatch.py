@@ -115,14 +115,16 @@ def assert_same_state(a, b):
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
-@pytest.mark.parametrize("accum_grad", [1, 2])
-def test_four_steps_a_dispatch_match_single_steps(tmp_path, accum_grad):
+@pytest.mark.parametrize("accum_grad,remat", [(1, False), (2, False), (1, True)],
+                         ids=["1", "2", "1-remat"])
+def test_four_steps_a_dispatch_match_single_steps(tmp_path, accum_grad, remat):
     """K = 4 against K = 1 over the same batches (gates and dropout on):
     9 micro-steps (accum_grad 1) or 14 (accum_grad 2: 7 updates, into the
     next epoch, whose batches carry lengths), so groups form and the last
     prefetched group overshoots and runs as single steps; every logged
-    metric, parameter, moment and the generator equal bit for bit."""
-    cfg = config(max_updates=9 if accum_grad == 1 else 7, accum_grad=accum_grad)
+    metric, parameter, moment and the generator equal bit for bit; also
+    with the student's layers checkpointed (``remat``)."""
+    cfg = config(max_updates=9 if accum_grad == 1 else 7, accum_grad=accum_grad, remat=remat)
     one = run(tmp_path / "k1", cfg=cfg)
     four = run(tmp_path / "k4", cfg=cfg, steps_per_dispatch=4)
     assert one.step == four.step == cfg.max_updates * accum_grad
@@ -268,17 +270,16 @@ def deterministic(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("accum_grad,lengths", [(1, None), (2, [3200, 2600])])
-def test_graph_replays_equal_eager_steps_on_card(accum_grad, lengths, deterministic):
+def _graph_against_eager(accum_grad, lengths, remat=False):
     """A 4-step group on the card: the first call of a key runs eagerly and
     captures, two replays follow; against 12 eager single steps from the
     same state and generator, every parameter, moment, the counters, the
     generator and the metrics equal bit for bit after each call (dropout
-    and gates on), so the replays read each step's own scalars."""
+    and gates on), so the replays read each step's own scalars; returns
+    the group."""
     _card()
     teacher, student = models("cuda")
-    cfg = config(accum_grad=accum_grad, max_updates=20)
+    cfg = config(accum_grad=accum_grad, max_updates=20, remat=remat)
     a, tx_a = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128, device="cuda")
     b, tx_b = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128, device="cuda")
     single = make_train_step(teacher, cfg, tx_a)
@@ -303,6 +304,13 @@ def test_graph_replays_equal_eager_steps_on_card(accum_grad, lengths, determinis
     assert captured and captured.get("packed_attention_fwd", 0) > 0
     assert GraphedSteps.replays == 2
     assert GraphedSteps.replayed == {k: 2 * v for k, v in captured.items()}
+    return group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accum_grad,lengths", [(1, None), (2, [3200, 2600])])
+def test_graph_replays_equal_eager_steps_on_card(accum_grad, lengths, deterministic):
+    _graph_against_eager(accum_grad, lengths)
 
 
 @pytest.mark.gpu
@@ -360,14 +368,18 @@ def test_trainer_dispatches_graphs_on_card_as_single_steps(tmp_path, determinist
 
 
 @pytest.mark.gpu
-def test_remat_with_graphs_is_refused_on_card():
-    _card()
-    teacher, student = models("cuda")
-    cfg = config(remat=True)
-    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128, device="cuda")
-    step = make_train_step(teacher, cfg, tx, steps_per_call=2)
-    with pytest.raises(ValueError, match="remat"):
-        step(state, (np.zeros((2, 2, 3200), np.float32), None))
+@pytest.mark.parametrize("lengths", [None, [3200, 2600]])
+def test_remat_graph_replays_equal_eager_steps_on_card(lengths, deterministic):
+    """The student's layers checkpointed inside the 4-step graph: each
+    captured recompute draws its forward's dropout from a generator of its
+    own (``RematReplay``, set before every replay), so two replays still
+    equal 8 eager remat steps bit for bit; a forward a layer more is
+    captured (the recompute), one generator registered for each of the
+    group's 4 x 3 checkpointed layers."""
+    group = _graph_against_eager(1, lengths, remat=True)
+    (g,) = group.graphs.values()
+    assert len(g.remat.states) == len(g.remat.offsets) == 12
+    assert GraphedSteps.captured["packed_attention_fwd"] == 4 * (3 + 3 + 3)
 
 
 def test_resume_under_another_k_reads_a_missing_record_as_one(tmp_path):

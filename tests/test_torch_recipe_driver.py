@@ -90,6 +90,34 @@ def test_run_torch_sh_with_the_last_backend(corpus, teacher_ckpt, tmp_path):
         assert not (exp / stage / "ckpts" / "rotated").exists()
 
 
+def test_run_torch_sh_with_remat_runs_four_steps_a_dispatch(corpus, teacher_ckpt, tmp_path):
+    """``REMAT=1`` keeps the default of 4 steps a dispatch (a captured
+    graph replays the checkpointed layers' dropout too): the two training
+    stages get ``--remat --steps_per_dispatch 4`` (read by a ``python`` on
+    the PATH that logs its arguments) and record K = 4."""
+    import sys
+
+    _, tsv = corpus
+    bin_dir, log = tmp_path / "bin", tmp_path / "argv.log"
+    bin_dir.mkdir()
+    (bin_dir / "python").write_text(
+        f'#!/bin/sh\necho "$*" >> "{log}"\nexec "{sys.executable}" "$@"\n')
+    (bin_dir / "python").chmod(0o755)
+    exp = tmp_path / "exp"
+    proc = _run_torch_sh(tsv, teacher_ckpt, exp, tmp_path, REMAT="1",
+                         PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    assert f"Done: {exp}/dphubert.pth" in proc.stdout
+    stages = [line for line in log.read_text().splitlines()
+              if "cli.distill" in line or "cli.final_distill" in line]
+    assert len(stages) == 2
+    for line in stages:
+        assert "--remat" in line.split() and "--steps_per_dispatch 4" in line, line
+    for stage, steps in (("stage1", 3), ("stage2", 2)):
+        meta = torch.load(exp / stage / "ckpts" / "rotated" / f"step_{steps}.pt",
+                          weights_only=True)["meta"]
+        assert meta["steps_per_dispatch"] == 4
+
+
 def _stage1(corpus_tsv, teacher, exp_dir, extra=()):
     from dphubert_torch.cli import distill
 

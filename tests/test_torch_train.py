@@ -21,6 +21,8 @@ from dphubert_torch.params import unflatten_params
 from dphubert_torch.train import (
     DistillConfig,
     DistillOptimizer,
+    apply_projections,
+    distill_loss,
     distill_loss_unstacked,
     init_projections,
     init_train_state,
@@ -115,6 +117,57 @@ def test_distill_loss_and_grads_match(mode, cos_type):
     for i, w in enumerate(want_g[1]):
         grad = np.zeros_like(hiddens[i]) if t_h[i].grad is None else t_h[i].grad.numpy()
         np.testing.assert_allclose(grad, np.asarray(w), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["layer2layer", "predlayer"])
+@pytest.mark.parametrize("cos_type", ["raw", "log_sig"])
+def test_stacked_loss_matches_jax_and_the_unstacked_form(mode, cos_type):
+    """``apply_projections`` + ``distill_loss`` (the reference's stacked
+    form) against the TPU package's pair, as tests/test_train.py holds that
+    pair: value and terms to 1e-5, the gradients in the projections and the
+    student's hidden states to 1e-5 of their norm; and against the port's
+    ``distill_loss_unstacked`` to 1e-6."""
+    groups = ((0,), (1, 3))
+    flat = (0, 1, 3)
+    B, L, ds, dt = 2, 9, 16, 24
+    rng = np.random.default_rng(1)
+    hiddens = [rng.standard_normal((B, L, ds)).astype(np.float32) for _ in range(4)]
+    teacher = [rng.standard_normal((B, L, dt)).astype(np.float32) for _ in range(4)]
+    projs = j_proj.init_projections(mode, groups, ds, dt, jax.random.key(3))
+    kw = dict(l2_weight=0.5, l1_weight=1.0, cos_weight=1.0, cos_type=cos_type)
+    t_stack = np.stack([teacher[i] for i in flat], axis=1)
+
+    def j_loss(p, h):
+        s = j_proj.apply_projections(p, mode, groups, h)
+        return j_losses.distill_loss(s, jnp.asarray(t_stack), **kw)
+
+    (want, want_terms), want_g = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(
+        projs, [jnp.asarray(h) for h in hiddens])
+    t_projs = unflatten_params({k: torch.from_numpy(np.array(v)).requires_grad_()
+                                for k, v in pt.flatten_params(projs).items()})
+    t_h = [torch.from_numpy(h).requires_grad_() for h in hiddens]
+    stacked = apply_projections(t_projs, mode, groups, t_h)
+    assert tuple(stacked.shape) == (B, len(flat), L, dt)
+    got, got_terms = distill_loss(stacked, torch.from_numpy(t_stack), **kw)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    for g, w in zip(got_terms, want_terms):
+        np.testing.assert_allclose(g.item(), float(w), rtol=1e-5, atol=1e-7)
+    names = list(pt.flatten_params(t_projs))
+    grads = torch.autograd.grad(got, list(pt.flatten_params(t_projs).values()) + t_h,
+                                allow_unused=True)
+    want_p = pt.flatten_params(jax.tree.map(np.asarray, want_g[0]))
+    want_leaves = [want_p[n] for n in names] + [np.asarray(w) for w in want_g[1]]
+    for g, w in zip(grads, want_leaves):
+        g = np.zeros_like(w) if g is None else g.numpy()
+        assert np.linalg.norm(g - w) <= 1e-5 * max(float(np.linalg.norm(w)), 1e-12) + 1e-12
+    # the unstacked form, the one the step runs, gives the same loss
+    unstacked, terms = distill_loss_unstacked(
+        t_projs, mode, groups, t_h, [torch.from_numpy(t) for t in teacher], flat, **kw)
+    np.testing.assert_allclose(unstacked.item(), got.item(), rtol=1e-6)
+    for a, b in zip(terms, got_terms):
+        np.testing.assert_allclose(a.item(), b.item(), rtol=1e-6, atol=1e-12)
+    with pytest.raises(ValueError, match="cosine"):
+        distill_loss(stacked, torch.from_numpy(t_stack), **dict(kw, cos_type="cosine"))
 
 
 @pytest.mark.parametrize("weight_decay", [0.0, 0.01])

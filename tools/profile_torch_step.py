@@ -31,17 +31,16 @@ import pathlib
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import dphubert_torch as pt  # noqa: E402
 from dphubert_torch.train import DistillConfig, init_train_state, make_train_step  # noqa: E402
+from dphubert_torch.utils.profiling import device_breakdown  # noqa: E402
 
 PRUNE_FLAGS = dict(
     extractor_prune_conv_channels=True,
@@ -50,37 +49,6 @@ PRUNE_FLAGS = dict(
     encoder_prune_feed_forward_intermediate=True,
     encoder_prune_feed_forward_layer=True,
 )
-# kernel family by a substring of the kernel's name, first match wins
-FAMILIES = (
-    ("attention (this repo's kernels)", ("attention_fwd_", "attention_bwd_", "wavlm_")),
-    ("matmul (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
-    ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
-    ("random numbers", ("distribution", "philox", "random", "bernoulli")),
-    ("optimizer (foreach)", ("multi_tensor", "foreach")),
-    ("reductions", ("reduce", "norm")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "Loops", "copy")),
-)
-
-
-def family(name: str) -> str:
-    for label, keys in FAMILIES:
-        if any(k in name for k in keys):
-            return label
-    return "other"
-
-
-def union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("hubert_base", "wavlm_base", "wav2vec2_large"),
@@ -132,31 +100,19 @@ def main() -> int:
             step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
-    by_name = defaultdict(lambda: [0.0, 0])
-    by_family = defaultdict(float)
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name][0] += us
-        by_name[e.name][1] += 1
-        by_family[family(e.name)] += us
-    busy_ms = union_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / args.steps
-    kernel_ms = sum(by_family.values()) / 1e3 / args.steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    dev = device_breakdown(prof, steps=args.steps)
+    busy_ms = dev["busy_ms"]
     result = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "model": args.model,
         "step": args.step, "remat": args.remat, "steps": args.steps, "batch": shape,
         "dtype": "bfloat16",
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernel_ms_per_step": kernel_ms,
-        "kernel_launches_per_step": len(kernels) / args.steps,
-        "families_ms_per_step": {k: v / 1e3 / args.steps
-                                 for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])},
-        "top_kernels": [{"name": n[:120], "ms_per_step": t / 1e3 / args.steps,
-                         "calls_per_step": c / args.steps} for n, (t, c) in top],
+        "kernel_ms_per_step": dev["kernel_ms"],
+        "kernel_launches_per_step": dev["launches"],
+        "families_ms_per_step": dev["families_ms"],
+        "top_kernels": [{"name": k["name"][:120], "ms_per_step": k["ms"],
+                         "calls_per_step": k["calls"]} for k in dev["top"]],
     }
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

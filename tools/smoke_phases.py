@@ -2,8 +2,8 @@
 """Run chosen phases of ``chip_smoke.py`` on one card, and the probe of
 how deterministic the distill step is.
 
-    python3 tools/smoke_phases.py [determinism] [train] [final] [wavlm] [large] [ckpt] [pipeline]
-                                  [parallel]
+    python3 tools/smoke_phases.py [determinism] [train] [final] [wavlm] [layerdrop] [large]
+                                  [ckpt] [pipeline] [parallel]
 
 The kernels are built first (phase "card"); then, in the order given:
 
@@ -14,9 +14,12 @@ The kernels are built first (phase "card"); then, in the order given:
   and with PyTorch's deterministic algorithms too; one JSON line each
   with the tensors that differ and the step times;
 * ``train``, ``final``, ``wavlm``, ``large``: the smoke's timed steps
-  with their "graph_train" phases (stage 1 with its "graph_keys" too, the
-  final distill, DPWavLM on the single and then the general route,
-  wav2vec 2.0 Large converted from fairseq names, with its "graph_keys");
+  with their "graph_train" phases (stage 1 with its "graph_keys" and its
+  "profile" too, the final distill, DPWavLM on the single and then the
+  general route, wav2vec 2.0 Large converted from fairseq names, without
+  and with remat, with its "graph_keys");
+* ``layerdrop``: the training forward with LayerDrop, HuBERT Base and
+  WavLM Base;
 * ``ckpt``: the smoke's checkpoint phase (without the Large state's
   decision);
 * ``pipeline``: the recipe through the CLIs;
@@ -111,6 +114,9 @@ def main(argv) -> int:
             cs.phase_final_distill_step()
         elif name == "wavlm":
             cs.phase_wavlm_general_train(cs.phase_train("wavlm"))
+        elif name == "layerdrop":
+            cs.phase_layerdrop("hubert")
+            cs.phase_layerdrop("wavlm")
         elif name == "large":
             converted, _ = cs.phase_large_convert()
             cs.phase_large_train(converted)
