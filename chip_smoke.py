@@ -43,7 +43,7 @@ full width with random weights from seeds:
 * ``dphubert_torch.utils.profiling`` on the stage-1 step: ``trace``
   around 2 steps writes a Chrome trace; ``device_breakdown``'s kernel
   families' shares of the busy time sum to it, and the packed kernels ran
-  as counted; ``Throughput`` over the timed segments (phase "profile");
+  as counted (phase "profile");
 * wav2vec 2.0 Large (``run_large.sh``): a seeded ``wav2vec2_large`` written
   as a fairseq checkpoint and converted back with ``convert_from_fairseq``
   bit for bit, then served; ``wavlm_large`` served; the packed kernels at
@@ -205,7 +205,7 @@ from dphubert_torch.train.checkpointing import (
     snapshot_bytes,
 )
 from dphubert_torch.train.distill_module import GraphedSteps
-from dphubert_torch.utils import Throughput, device_breakdown, trace
+from dphubert_torch.utils import device_breakdown, trace
 
 REPO = pathlib.Path(__file__).resolve().parent
 SR = 16000
@@ -1442,8 +1442,6 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
     torch.cuda.synchronize()
     reset_launch_counts()
     seg = []
-    rate = Throughput()  # the same segments, read through utils.profiling
-    rate.step(0.0)
     for _ in range(segments):
         t0 = time.perf_counter()
         for _ in range(steps_per_segment):
@@ -1451,7 +1449,6 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
             history.append(metrics)
         torch.cuda.synchronize()
         seg.append(steps_per_segment * audio_per_step / (time.perf_counter() - t0))
-        rate.step(steps_per_segment * audio_per_step)
     counts = launch_counts()
     n = steps_per_segment * segments
     check(counts == {k: v * n for k, v in per_step.items()},
@@ -1462,7 +1459,6 @@ def timed_steps(label: str, step, state, batch, per_step: dict, audio_per_step: 
             check(np.isfinite(v), f"{label} step {i}: {k} = {v}")
     fields = {"dtype": "bfloat16", "audio_seconds_per_step": audio_per_step, "steps_timed": n,
               "audio_sec_per_s": statistics.median(seg), "segments": seg,
-              "throughput_audio_sec_per_s": rate.audio_sec_per_sec,
               "step_s": audio_per_step / statistics.median(seg),
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
               "launches_per_step": {k: v / n for k, v in counts.items()},
@@ -1516,7 +1512,7 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
            **fields, "lambda1_final": lam1, "s_minus_t": [gap[0], gap[-1]]}
     emit(row)
     if family == "hubert" and label == "train":
-        row["profile"] = phase_profile(step, state, batch, per_step, fields)
+        row["profile"] = phase_profile(step, state, batch, per_step)
     del state, tx, batch, step
     torch.cuda.empty_cache()
     graph = phase_graph_train(f"graph_{label}", teacher, student, cfg, 5, (TRAIN_B, T),
@@ -1536,7 +1532,7 @@ PACKED_KERNEL_NAMES = {"packed_attention_fwd": "attention_fwd_wgmma_kernel",
                        "packed_attention_bwd_dkv": "attention_bwd_dkv_wgmma_kernel"}
 
 
-def phase_profile(step, state, batch, per_step: dict, fields: dict) -> dict:
+def phase_profile(step, state, batch, per_step: dict) -> dict:
     """``dphubert_torch.utils.profiling`` on phase "train"'s stage-1 step
     (its state, batch and step: bf16, B = 16 x 15 s, dropout on):
     ``trace`` around 2 steps writes a Chrome trace (its path and size
@@ -1544,9 +1540,7 @@ def phase_profile(step, state, batch, per_step: dict, fields: dict) -> dict:
     shares of the busy time sum to it within 1% (kernels that run at once
     share their time; the kernel time over the busy time, and the kernels
     that ran beside others, are printed), and the packed entries' tensor-core kernels
-    ran as often as their wrappers counted, 24 / 12 / 12 a step;
-    ``Throughput`` over the phase's timed segments (``timed_steps``) within
-    5% of the phase's own median audio-sec/s."""
+    ran as often as their wrappers counted, 24 / 12 / 12 a step."""
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1573,9 +1567,6 @@ def phase_profile(step, state, batch, per_step: dict, fields: dict) -> dict:
              for name, kernel in PACKED_KERNEL_NAMES.items()}
     check(calls == {name: float(per_step[name]) for name in calls},
           f"profile: packed kernels a step {calls}, the wrappers counted {nonzero(per_step)}")
-    own, rolled = fields["audio_sec_per_s"], fields["throughput_audio_sec_per_s"]
-    check(abs(rolled - own) <= 0.05 * own,
-          f"profile: Throughput {rolled} audio-sec/s against the phase's median {own}")
     row = {"phase": "profile", "path": "train", "steps": PROFILE_STEPS,
            "trace": str(path.relative_to(REPO)), "trace_bytes": size,
            "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": dev["busy_ms"],
@@ -1589,8 +1580,7 @@ def phase_profile(step, state, batch, per_step: dict, fields: dict) -> dict:
                                   if k["ms"] > k["busy_ms"]],
            "kernel_launches_per_step": dev["launches"], "packed_kernel_calls_per_step": calls,
            "top_kernels": [dict(k, name=k["name"][:120]) for k in dev["top"][:10]],
-           "throughput_audio_sec_per_s": rolled, "phase_median_audio_sec_per_s": own,
-           "throughput_over_median": rolled / own, "card": nvidia_smi(), "launches": counts}
+           "card": nvidia_smi(), "launches": counts}
     emit(row)
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     return row

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.model import Wav2Vec2Model, resolve_device
+from .utils.profiling import span
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -60,18 +61,29 @@ class Predictor:
         self.dtype = dtype
 
     def extract(self, waves: Sequence[np.ndarray]) -> List[np.ndarray]:
-        """Final-layer features of each clip, valid frames only, as float32."""
-        results: List[Optional[np.ndarray]] = [None] * len(waves)
-        order = sorted(range(len(waves)), key=lambda i: len(waves[i]))
-        for start in range(0, len(order), self.max_batch):
-            idx = order[start : start + self.max_batch]
-            batch, lengths = pad_batch([waves[i] for i in idx], self.length_step)
-            with torch.inference_mode():
-                wave = torch.from_numpy(batch).to(self.device).to(self.dtype)
-                lens = torch.from_numpy(lengths).to(self.device)
-                outs, out_lens = self.model.extract_features(wave, lens)
-                out = outs[-1].float().cpu().numpy()
-                out_lens = out_lens.cpu().numpy()
-            for r, i in enumerate(idx):
-                results[i] = out[r, : out_lens[r]]
+        """Final-layer features of each clip, valid frames only, as float32.
+
+        Under a profiler each batch's phases are ranges of the trace
+        (``utils.profiling.span``), inside ``predictor.extract``:
+        ``predictor.pad``, ``.h2d``, ``.forward`` (the enqueue), ``.readback``
+        (the copies to the host, which wait for the card) and ``.unpad``."""
+        with span("predictor.extract"):
+            results: List[Optional[np.ndarray]] = [None] * len(waves)
+            order = sorted(range(len(waves)), key=lambda i: len(waves[i]))
+            for start in range(0, len(order), self.max_batch):
+                with span("predictor.pad"):
+                    idx = order[start : start + self.max_batch]
+                    batch, lengths = pad_batch([waves[i] for i in idx], self.length_step)
+                with torch.inference_mode():
+                    with span("predictor.h2d"):
+                        wave = torch.from_numpy(batch).to(self.device).to(self.dtype)
+                        lens = torch.from_numpy(lengths).to(self.device)
+                    with span("predictor.forward"):
+                        outs, out_lens = self.model.extract_features(wave, lens)
+                    with span("predictor.readback"):
+                        out = outs[-1].float().cpu().numpy()
+                        out_lens = out_lens.cpu().numpy()
+                with span("predictor.unpad"):
+                    for r, i in enumerate(idx):
+                        results[i] = out[r, : out_lens[r]]
         return results  # type: ignore[return-value]

@@ -65,6 +65,7 @@ from ..ops import kernel_launches
 from ..parallel.comm import all_reduce_grads, full, full_numel
 from ..parallel.sharding import Block, narrow, shard_train_state
 from ..params import flatten_params, unflatten_params
+from ..utils.profiling import span
 from .losses import distill_loss_unstacked
 from .optim import DistillOptimizer, OptState, global_norm
 from .projections import flatten_groups, init_projections
@@ -460,7 +461,13 @@ class GraphedSteps:
     (``reset_tally`` zeroes it).  ``before_capture``, if set, is called
     before each capture: a capture forbids other threads' unsafe CUDA calls
     (the background saver's pinned copy), so the trainer waits there for a
-    save in flight."""
+    save in flight.
+
+    Under a profiler a call's host phases are ranges of the trace
+    (``utils.profiling.span``): ``step.plan`` (the batch's casts and the
+    steps' scalars uploaded), then ``step.stage`` (the copies into the
+    graph's buffers) and ``step.replay``, or ``step.capture`` for a key's
+    first group."""
 
     captured: Dict[str, int] = {}
     replayed: Dict[str, int] = {}
@@ -494,15 +501,16 @@ class GraphedSteps:
         return {n: out[i] for i, n in enumerate(self.names)}
 
     def __call__(self, state: TrainState, batch):
-        waves, lengths = batch
-        device = state.student.feature_extractor.dummy_weight.device
-        waves = torch.as_tensor(waves).to(device)
-        if lengths is not None:
-            lengths = torch.as_tensor(lengths).to(device=device, dtype=torch.int32)
-        if waves.shape[0] != self.k:
-            raise ValueError(f"a group of {self.k} steps needs a stack of {self.k} batches, "
-                             f"got {tuple(waves.shape)}")
-        scalars = _on_device(_plan(self.cfg, self.tx, state, self.k), device)
+        with span("step.plan"):
+            waves, lengths = batch
+            device = state.student.feature_extractor.dummy_weight.device
+            waves = torch.as_tensor(waves).to(device)
+            if lengths is not None:
+                lengths = torch.as_tensor(lengths).to(device=device, dtype=torch.int32)
+            if waves.shape[0] != self.k:
+                raise ValueError(f"a group of {self.k} steps needs a stack of {self.k} batches, "
+                                 f"got {tuple(waves.shape)}")
+            scalars = _on_device(_plan(self.cfg, self.tx, state, self.k), device)
         if device.type != "cuda":
             g = _Graph(None, waves, lengths, scalars)
             self._run(state, g)
@@ -511,19 +519,22 @@ class GraphedSteps:
         key = (tuple(waves.shape), waves.dtype, lengths is None, state.opt_state.mini_step)
         g = self.graphs.get(key)
         if g is None:
-            return state, self._warm_and_capture(state, key, waves, lengths, scalars)
-        g.wave.copy_(waves)
-        if lengths is not None:
-            g.lengths.copy_(lengths)
-        g.scalars.copy_(scalars)
-        if g.remat is not None:
-            g.remat.prepare()
-        g.graph.replay()
-        GraphedSteps.replays += 1
-        GraphedSteps.replayed = _add_counts(GraphedSteps.replayed, g.launches)
-        state.step += self.k
-        for _ in range(self.k):
-            self.tx.tick(state.opt_state)
+            with span("step.capture"):
+                return state, self._warm_and_capture(state, key, waves, lengths, scalars)
+        with span("step.stage"):
+            g.wave.copy_(waves)
+            if lengths is not None:
+                g.lengths.copy_(lengths)
+            g.scalars.copy_(scalars)
+            if g.remat is not None:
+                g.remat.prepare()
+        with span("step.replay"):
+            g.graph.replay()
+            GraphedSteps.replays += 1
+            GraphedSteps.replayed = _add_counts(GraphedSteps.replayed, g.launches)
+            state.step += self.k
+            for _ in range(self.k):
+                self.tx.tick(state.opt_state)
         return state, self._metrics(g.out.clone())
 
     def _warm_and_capture(self, state: TrainState, key, waves, lengths, scalars):

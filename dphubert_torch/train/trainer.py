@@ -66,6 +66,7 @@ from ..parallel.fsdp import shard_module
 from ..parallel.mesh import agree_max, barrier, replicate
 from ..parallel.sharding import gather_full, gather_state_tensors
 from ..params import unflatten_params
+from ..utils.profiling import span
 from .checkpointing import (
     BackgroundSaver,
     RotatingCheckpointer,
@@ -516,16 +517,18 @@ def _device_prefetch(it, device: torch.device):
     """Run one dispatch ahead: the host-to-card copies of dispatch N+1's
     batch and lengths (from pinned memory, non-blocking) are issued before
     dispatch N runs.  Yields (waveforms on the device, lengths on the
-    device or None, audio seconds)."""
+    device or None, audio seconds).  Under a profiler each batch's copies
+    are a ``feed.h2d`` range, closed before the yield."""
     prev = None
     for wave, lengths in it:
-        audio_sec = wave.size / SAMPLE_RATE
-        t = torch.from_numpy(wave)
-        lens = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int32))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-            if lens is not None:
-                lens = lens.pin_memory().to(device, non_blocking=True)
+        with span("feed.h2d"):
+            audio_sec = wave.size / SAMPLE_RATE
+            t = torch.from_numpy(wave)
+            lens = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int32))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+                if lens is not None:
+                    lens = lens.pin_memory().to(device, non_blocking=True)
         cur = (t, lens, audio_sec)
         if prev is not None:
             yield prev

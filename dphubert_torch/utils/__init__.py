@@ -1,4 +1,4 @@
 from .grad import grad_multiply
-from .profiling import Throughput, device_breakdown, trace
+from .profiling import device_breakdown, span, trace
 
-__all__ = ["Throughput", "device_breakdown", "grad_multiply", "trace"]
+__all__ = ["device_breakdown", "grad_multiply", "span", "trace"]

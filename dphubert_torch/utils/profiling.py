@@ -2,8 +2,8 @@
 
 ``trace`` records a ``torch.profiler`` trace around a block of steps and
 writes it where TensorBoard's profiler plugin and ``chrome://tracing``
-read it; ``Throughput`` is the rolling steps/s and audio-seconds/s
-counter; ``device_breakdown`` reads a finished profile's device time: the
+read it; ``span`` names a phase of the program's host path in such a
+trace; ``device_breakdown`` reads a finished profile's device time: the
 card's busy time (the union of its kernels' intervals), the time of each
 kernel family (``FAMILIES``) and the top kernels by name.
 """
@@ -16,30 +16,52 @@ import pathlib
 import socket
 import time
 from collections import defaultdict
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
-# kernel family by a substring of the kernel's name, first match wins
+# kernel family by a substring of the kernel's name (lower case, "convert"
+# left out), first match wins: the convolution markers come before the
+# matmul ones, since cuDNN's implicit-GEMM and cutlass kernels are
+# convolutions
 FAMILIES = (
     ("attention (this repo's kernels)", ("attention_fwd_", "attention_bwd_", "wavlm_")),
-    ("matmul (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
     ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
     ("random numbers", ("distribution", "philox", "random", "bernoulli")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("reductions", ("reduce", "norm")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "Loops", "copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "loops", "copy")),
 )
+
+_OFF = contextlib.nullcontext()
 
 
 def family(name: str) -> str:
     """The ``FAMILIES`` label of a kernel's name, or "other"."""
+    low = name.lower().replace("convert", "")
     for label, keys in FAMILIES:
-        if any(k in name for k in keys):
+        if any(k in low for k in keys):
             return label
     return "other"
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler runs,
+    else one shared do-nothing context, so a phase costs a flag read when
+    nothing records it:
+
+        with profiling.span("predictor.pad"):
+            batch, lengths = pad_batch(...)
+
+    The range lands in the profiler's trace on the clock of the card's
+    operations, beside those it enqueues."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
 
 
 def union_us(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -136,35 +158,3 @@ def device_breakdown(prof, steps: int = 1, top: int = 25) -> dict:
         "top": [{"name": n, "ms": t / per, "busy_ms": b / per, "calls": c / steps}
                 for n, (t, b, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]],
     }
-
-
-class Throughput:
-    """Rolling audio-seconds/sec and steps/sec counter."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._events = []  # (t, audio_seconds)
-
-    def step(self, audio_seconds: float) -> None:
-        self._events.append((time.perf_counter(), audio_seconds))
-        if len(self._events) > self.window:
-            self._events.pop(0)
-
-    @property
-    def steps_per_sec(self) -> Optional[float]:
-        if len(self._events) < 2:
-            return None
-        dt = self._events[-1][0] - self._events[0][0]
-        return (len(self._events) - 1) / dt if dt > 0 else None
-
-    @property
-    def audio_sec_per_sec(self) -> Optional[float]:
-        if len(self._events) < 2:
-            return None
-        dt = self._events[-1][0] - self._events[0][0]
-        total = sum(a for _, a in self._events[1:])
-        return total / dt if dt > 0 else None
-
-    def per_chip(self, n_chips: int) -> Optional[float]:
-        v = self.audio_sec_per_sec
-        return v / n_chips if v is not None else None

@@ -4,8 +4,9 @@
 On the CPU (these tests) a group is K eager steps, so K = 4 and K = 1 over
 the same batches are the same arithmetic and must agree bit for bit; the
 grouper is the TPU package's, input for input; the per-step scalars that a
-graph reads from the card are the old host formulas bit for bit.  The
-``gpu`` tests hold a replayed CUDA graph against eager steps on the card
+graph reads from the card are the old host formulas bit for bit; under
+the profiler the feed's ``feed.h2d`` and the dispatch's ``step.*`` spans
+open and close where they should.  The ``gpu`` tests hold a replayed CUDA graph against eager steps on the card
 (``python -m pytest --noconftest -m gpu tests/test_torch_dispatch.py``:
 this module imports no JAX at the top).
 """
@@ -15,6 +16,8 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import dphubert_torch as pt
 from dphubert_torch.train import DistillConfig, init_train_state, make_train_step, train
@@ -251,6 +254,62 @@ def test_step_scalars_equal_the_old_host_formulas(use_reg, accum_grad):
     assert np.array_equal(plan.view(np.uint32), np.stack(rows[60:64]).view(np.uint32))
 
 
+def host_ranges(prof, prefixes):
+    """The host's ranges of a finished ``torch.profiler`` profile whose
+    names start with one of ``prefixes``: (name, start ns, end ns), in the
+    order they opened (the events the benchmark's trace reader reads)."""
+    out = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CPU and e.name().startswith(tuple(prefixes))]
+    return sorted(out, key=lambda r: (r[1], -r[2]))
+
+
+def _dispatch_ranges(step, state, groups, device, activities):
+    """``groups`` fed through the trainer's feed into ``step``, each
+    dispatch inside a "consumer" range, under the profiler: the feed's,
+    the step's and the consumer's ranges, no ``feed.h2d`` open while a
+    consumer's range is."""
+    with profile(activities=activities) as prof:
+        for wave, lengths, _ in t_trainer._device_prefetch(iter(groups), device):
+            with record_function("consumer"):
+                state, metrics = step(state, (wave, lengths))
+                metrics["loss"].sum().item()
+    ranges = host_ranges(prof, ("feed.", "step.", "consumer"))
+    feeds = [r for r in ranges if r[0] == "feed.h2d"]
+    consumers = [r for r in ranges if r[0] == "consumer"]
+    assert all(f[2] <= c[1] or c[2] <= f[1] for f in feeds for c in consumers)
+    return ranges
+
+
+def _nested(ranges, outer, inner):
+    """The ``inner`` ranges, each inside one ``outer`` range in turn."""
+    outs = [r for r in ranges if r[0] == outer]
+    ins = [r for r in ranges if r[0] == inner]
+    assert len(ins) == len(outs)
+    assert all(o[1] <= i[1] <= i[2] <= o[2] for o, i in zip(outs, ins))
+
+
+def test_feed_and_dispatch_spans_close_before_the_consumer_runs():
+    """Three K = 2 groups through ``_device_prefetch`` and ``GraphedSteps``
+    on the CPU: one ``feed.h2d`` a group, each closed before the
+    consumer's range opens (the feed runs one group ahead), and one
+    ``step.plan`` inside each dispatch; the CPU runs no stage, replay or
+    capture."""
+    teacher, student = models()
+    cfg = config()
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128, device="cpu")
+    step = make_train_step(teacher, cfg, tx, steps_per_call=2)
+    rng = np.random.default_rng(0)
+    groups = [((0.1 * rng.standard_normal((2, 2, 3200))).astype(np.float32), None)
+              for _ in range(3)]
+    ranges = _dispatch_ranges(step, state, groups, torch.device("cpu"),
+                              [ProfilerActivity.CPU])
+    assert [n for n, _, _ in ranges] == ["feed.h2d", "feed.h2d", "consumer", "step.plan",
+                                         "feed.h2d", "consumer", "step.plan", "consumer",
+                                         "step.plan"]
+    _nested(ranges, "consumer", "step.plan")
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -311,6 +370,34 @@ def _graph_against_eager(accum_grad, lengths, remat=False):
 @pytest.mark.parametrize("accum_grad,lengths", [(1, None), (2, [3200, 2600])])
 def test_graph_replays_equal_eager_steps_on_card(accum_grad, lengths, deterministic):
     _graph_against_eager(accum_grad, lengths)
+
+
+@pytest.mark.gpu
+def test_dispatch_spans_on_card():
+    """A key's first group (captured with no profiler running), then three
+    groups of that key under the profiler: per dispatch one ``feed.h2d``
+    closed before the consumer's range, and inside that range
+    ``step.plan``, ``step.stage`` and ``step.replay`` in this order; no
+    capture."""
+    _card()
+    teacher, student = models("cuda")
+    cfg = config(max_updates=20)
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128,
+                                 device="cuda")
+    step = make_train_step(teacher, cfg, tx, steps_per_call=4)
+    rng = np.random.default_rng(0)
+    groups = [((0.1 * rng.standard_normal((4, 2, 3200))).astype(np.float32), None)
+              for _ in range(4)]
+    state, _ = step(state, groups[0])
+    GraphedSteps.reset_tally()
+    ranges = _dispatch_ranges(step, state, groups[1:], torch.device("cuda"),
+                              [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    assert GraphedSteps.replays == 3 and len(step.graphs) == 1
+    inside = ["consumer", "step.plan", "step.stage", "step.replay"]
+    assert [n for n, _, _ in ranges] == (["feed.h2d", "feed.h2d"] + inside + ["feed.h2d"]
+                                         + inside * 2)
+    for name in inside[1:]:
+        _nested(ranges, "consumer", name)
 
 
 @pytest.mark.gpu

@@ -1,46 +1,51 @@
-"""``dphubert_torch.utils.profiling`` on the CPU: ``Throughput`` against the
-TPU package's class on one sequence of events (the clock patched for
-both), ``trace`` writing a Chrome trace of a CPU block, and the device-time
-reading (``family``, ``union_us``, ``device_breakdown``) on synthetic
-kernels.  The card's profile is read by ``chip_smoke.py``'s phase
-"profile"."""
+"""``dphubert_torch.utils.profiling`` on the CPU: ``span`` with the
+profiler off (a shared no-op that never reaches the profiler's ops) and on
+(ranges in the profiler's results), ``trace`` writing a Chrome trace of a
+CPU block, and the device-time reading (``family``, ``union_us``,
+``device_breakdown``) on synthetic kernels.  The card's profile is read by
+``chip_smoke.py``'s phase "profile"."""
 
+import contextlib
 import json
-import time
 from types import SimpleNamespace
 
 import pytest
 import torch
 from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from dphubert_torch import utils as t_utils
 from dphubert_torch.utils import profiling as t_prof
-from dphubert_tpu.utils import profiling as j_prof
+
+from tests.test_torch_dispatch import host_ranges
 
 
-def test_throughput_matches_the_tpu_packages(monkeypatch):
-    """The same (time, audio seconds) events through both classes, past
-    the window so the oldest fall out: every property equal after each."""
-    clock = [10.0, 10.5, 11.25, 11.5, 13.0, 13.1, 14.7, 15.0]
-    now = [0.0]
-    monkeypatch.setattr(time, "perf_counter", lambda: now[0])
-    ours, theirs = t_prof.Throughput(window=4), j_prof.Throughput(window=4)
-    assert ours.steps_per_sec is ours.audio_sec_per_sec is ours.per_chip(2) is None
-    for i, audio in enumerate([0.0, 16.0, 8.0, 12.5, 16.0, 3.0, 9.0, 7.5]):
-        now[0] = clock[i]
-        ours.step(audio)
-        theirs.step(audio)
-        for read in (lambda t: t.steps_per_sec, lambda t: t.audio_sec_per_sec,
-                     lambda t: t.per_chip(4)):
-            assert read(ours) == read(theirs), i
-    # the window's first event marks its start: its audio is not counted
-    assert ours.audio_sec_per_sec == pytest.approx((3.0 + 9.0 + 7.5) / (15.0 - 13.0))
-    assert ours.steps_per_sec == pytest.approx(3 / 2.0)
-    # no time passed: no rate
-    still = t_prof.Throughput()
-    still.step(1.0)
-    still.step(1.0)
-    assert still.steps_per_sec is None and still.audio_sec_per_sec is None
+def test_span_is_a_shared_no_op_while_no_profiler_runs(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span reached the profiler with no profiler running")
+
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new", refuse)
+    with pytest.raises(AssertionError, match="no profiler running"):
+        with torch.profiler.record_function("unguarded"):
+            pass
+    off = t_prof.span("predictor.pad")
+    assert isinstance(off, contextlib.nullcontext)
+    assert t_prof.span("step.replay") is off is t_utils.span("feed.h2d")
+    with t_prof.span("predictor.extract"), t_prof.span("predictor.pad"):
+        torch.ones(3).add_(1)
+
+
+def test_span_records_nested_ranges_under_the_profiler():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with t_prof.span("outer.a"):
+            with t_prof.span("outer.b"):
+                torch.ones(3).add_(1)
+        with t_prof.span("outer.c"):
+            pass
+    (a, a0, a1), (b, b0, b1), (c, c0, c1) = host_ranges(prof, ("outer.",))
+    assert (a, b, c) == ("outer.a", "outer.b", "outer.c")
+    assert a0 <= b0 <= b1 <= a1 <= c0 <= c1
+    assert isinstance(t_prof.span("outer.a"), contextlib.nullcontext)  # off again
 
 
 def test_trace_writes_a_chrome_trace_of_the_block(tmp_path):
@@ -62,6 +67,17 @@ def test_family_and_union_us():
     assert t_prof.family("wavlm_bwd_dq_wgmma_kernel") == "attention (this repo's kernels)"
     assert t_prof.family("sm90_xmma_gemm_bf16bf16") == "matmul (cuBLAS)"
     assert t_prof.family("cudnn::dgrad_engine") == "convolution (cuDNN)"
+    # cuDNN's convolutions whose names carry a matmul marker too
+    assert t_prof.family(
+        "void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_analytic_bf16_128x64_"
+        "64x3_nhwc_align8>(cutlass_tensorop_bf16_s16816fprop_analytic_bf16_128x64_64x3_nhwc_"
+        "align8::Params)") == "convolution (cuDNN)"
+    assert t_prof.family(
+        "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64_"
+        "warpgroupsize1x1x1_g1_execute_segment_k_off_kernel__5x_cudnn") == "convolution (cuDNN)"
+    # a cast is no convolution
+    assert t_prof.family("void at::native::vectorized_elementwise_kernel<4, "
+                         "at::native::convert_float_bf16>") == "elementwise"
     assert t_prof.family("at::native::distribution_elementwise_grid_stride_kernel") == \
         "random numbers"
     assert t_prof.family("multi_tensor_apply_kernel") == "optimizer (foreach)"

@@ -4,6 +4,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import dphubert_torch as pt
 from dphubert_torch.interop import torch_ckpt as t_ckpt
@@ -14,6 +15,7 @@ from dphubert_tpu.interop import torch_ckpt as j_ckpt
 from dphubert_tpu.serve import Predictor as JPredictor
 
 from tests.test_forward_parity import _tiny_w2v2_config
+from tests.test_torch_dispatch import host_ranges
 
 
 def _models(seed=0):
@@ -38,6 +40,30 @@ def test_predictor_matches_jax_predictor():
         assert g.shape == np.shape(w), f"clip {i}"
         np.testing.assert_allclose(g, np.asarray(w), atol=1e-4, rtol=0,
                                    err_msg=f"clip {i}")
+
+
+def test_predictor_names_its_phases_in_the_profiler_trace():
+    """A request of two batches under the profiler: one ``predictor.extract``
+    range holding, per batch and in this order, pad, h2d, forward, readback
+    and unpad, none overlapping the next; the features equal those of the
+    same call with no profiler running."""
+    _, _, _, tm = _models()
+    rng = np.random.default_rng(3)
+    waves = [rng.standard_normal(n).astype(np.float32) for n in (2400, 900, 1700, 3100, 1200)]
+    p = Predictor(tm, length_step=800, max_batch=3, device="cpu")
+    want = p.extract(waves)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = p.extract(waves)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    ranges = host_ranges(prof, ("predictor.",))
+    (outer, lo, hi), phases = ranges[0], ranges[1:]
+    assert outer == "predictor.extract"
+    per_batch = ["predictor.pad", "predictor.h2d", "predictor.forward", "predictor.readback",
+                 "predictor.unpad"]
+    assert [n for n, _, _ in phases] == per_batch * 2
+    assert all(lo <= s <= e <= hi for _, s, e in phases)
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
 
 
 @pytest.mark.parametrize("suffix", [".pth", ".npz"])
