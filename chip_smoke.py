@@ -1157,7 +1157,8 @@ def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
     """Kernel launches of one pass of a model at L frames, from the routing
     rules: a forward per attention layer, and its backward kernels with
     ``backward``; with ``remat`` (and ``backward``) each layer's forward
-    runs again in the backward's recompute.  A WavLM model whose layer 0 keeps its attention (and so
+    runs again in the backward's recompute; with ``backward`` the pos
+    conv's input gradient once as a forward conv (``pos_conv_dgrad``).  A WavLM model whose layer 0 keeps its attention (and so
     the bias table) takes the WavLM kernels in every attention layer, on
     the route ``wavlm_route`` gives (read at the call, as the model reads
     it); every other layer takes the packed or flash route."""
@@ -1181,6 +1182,7 @@ def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
         if backward:
             for name in bwd:
                 counts[name] += 1
+    counts["pos_conv_dgrad"] = int(backward)
     return counts
 
 
@@ -1385,7 +1387,8 @@ def phase_wavlm_general_check() -> dict:
     every WavLM layer runs the general forward, dq, dbias and dkv entries.
     Launch counts are set to 0 just before and read just after: the card's
     fp32 and bf16 passes each launch one teacher forward and one student
-    forward and backward."""
+    forward and backward; ``pos_conv_dgrad`` also counts the CPU pass's
+    backward."""
     os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"] = "0"
     try:
         reset_launch_counts()
@@ -1397,6 +1400,7 @@ def phase_wavlm_general_check() -> dict:
     finally:
         del os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"]
     want = {k: 2 * v for k, v in per_pass.items()}
+    want["pos_conv_dgrad"] += 1
     check(counts == want, f"wavlm general route: launches {counts}, expected {want}")
     check(want["wavlm_attention_bwd_dbias"] == 24 and want["wavlm_attention_fwd"] == 0,
           f"wavlm general route per pass {per_pass}")
@@ -1493,10 +1497,11 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
         want = dict.fromkeys(WRAPPERS, 0)
         if wavlm_route(L) == "single":
             want.update(wavlm_attention_fwd=24, wavlm_attention_bwd_fused=12,
-                        wavlm_attention_bwd_dkv=12)
+                        wavlm_attention_bwd_dkv=12, pos_conv_dgrad=1)
         else:
             want.update(wavlm_attention_fwd_general=24, wavlm_attention_bwd_dq=12,
-                        wavlm_attention_bwd_dbias=12, wavlm_attention_bwd_dkv_general=12)
+                        wavlm_attention_bwd_dbias=12, wavlm_attention_bwd_dkv_general=12,
+                        pos_conv_dgrad=1)
         check(per_step == want, f"DPWavLM launches per step {per_step}, expected {want}")
     label = label or ("train" if family == "hubert" else "wavlm_train")
     step = make_train_step(teacher, cfg, tx)
@@ -1747,7 +1752,8 @@ def phase_layerdrop(family: str) -> dict:
     grads = torch.autograd.grad(out.float().square().mean(), params, allow_unused=True)
     torch.cuda.synchronize()
     bwd_counts = launch_counts()
-    want = dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}, **dict.fromkeys(bwd, n))
+    want = dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}, **dict.fromkeys(bwd, n),
+                pos_conv_dgrad=1)
     check(bwd_counts == want, f"layerdrop {family} backward: launches {nonzero(bwd_counts)}")
     check(all(g is None or bool(torch.isfinite(g).all()) for g in grads),
           f"layerdrop {family}: non-finite gradient")
@@ -2755,7 +2761,7 @@ def phase_large_train(converted) -> dict:
                               (1, model_launches(state.student.spec, L, True, remat=remat)))
         want = dict.fromkeys(WRAPPERS, 0)
         want.update(packed_attention_fwd=72 if remat else 48, packed_attention_bwd_dq=24,
-                    packed_attention_bwd_dkv=24)
+                    packed_attention_bwd_dkv=24, pos_conv_dgrad=1)
         check(per_step == want, f"Large remat={remat}: launches per step {per_step}")
         label = "large_train_remat" if remat else "large_train"
         state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
@@ -3243,7 +3249,7 @@ def parallel_card_job(payload: dict, first) -> dict:
                     if family == "hubert" else
                     ("wavlm_attention_fwd", ("wavlm_attention_bwd_fused",
                                              "wavlm_attention_bwd_dkv")))
-        check(row["launches_per_step"] == {fwd: 24, **dict.fromkeys(bwd, 12)}
+        check(row["launches_per_step"] == {fwd: 24, **dict.fromkeys(bwd, 12), "pos_conv_dgrad": 1}
               and row["teacher_forward_launches"] == {fwd: 12},
               f"{what}: launches {row['launches_per_step']}, teacher "
               f"{row['teacher_forward_launches']}")

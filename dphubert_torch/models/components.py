@@ -70,6 +70,7 @@ from ..configs import (
 from ..ops.attention_common import fold_dropout_seed
 from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
+from ..ops.pos_conv import PosConvFn
 from ..ops.wavlm_attention import wavlm_attention_qkv
 from ..parallel.comm import copy_to_model, full, reduce_from_model
 
@@ -360,22 +361,17 @@ class WeightNormConv(nn.Module):
 
 class ConvolutionalPositionalEmbedding(nn.Module):
     """Weight-normed grouped conv, padding K//2, even kernels drop the last
-    frame, then GELU.  x: (B, L, E)."""
+    frame (``ops.pos_conv``: its input gradient a forward conv), then GELU.
+    x: (B, L, E)."""
 
     def __init__(self, embed_dim: int, kernel_size: int, groups: int):
         super().__init__()
-        self.kernel_size = kernel_size
         self.groups = groups
         self.conv = WeightNormConv(embed_dim, kernel_size, groups)
 
     def forward(self, x):
-        k = self.kernel_size
-        y = F.conv1d(
-            x.transpose(1, 2), self.conv.weight(x.dtype), full(self.conv.bias).to(x.dtype),
-            padding=k // 2, groups=self.groups,
-        )
-        if k % 2 == 0:
-            y = y[..., :-1]
+        y = PosConvFn.apply(x.transpose(1, 2), self.conv.weight(x.dtype),
+                            full(self.conv.bias).to(x.dtype), self.groups)
         return F.gelu(y).transpose(1, 2)
 
 

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the port, each beside its plain version."""
+"""Hand-written CUDA kernels of the port, each beside its plain version,
+and the positional conv's autograd function (``PosConvFn``)."""
 
 from .attention_common import dropout_keep_mask, dropout_threshold
 from .flash_attention import (
@@ -20,6 +21,7 @@ from .packed_attention import (
     packed_attention_reference,
     packed_num_groups,
 )
+from .pos_conv import PosConvFn
 from .wavlm_attention import (
     WavLMAttentionFn,
     wavlm_attention,
@@ -37,7 +39,9 @@ from .wavlm_attention import (
 )
 
 # every kernel's wrapper by the kernel's name; each wrapper's ``launches``
-# counts its launches (a CUDA graph's capture counts once, its replays not)
+# counts its launches (a CUDA graph's capture counts once, its replays not);
+# ``pos_conv_dgrad`` counts the pos conv's input gradients taken as forward
+# convs (cuDNN's kernels, not the port's)
 LAUNCH_COUNTERS = {
     "packed_attention_fwd": packed_attention,
     "flash_attention_fwd": flash_attention,
@@ -52,6 +56,7 @@ LAUNCH_COUNTERS = {
     "wavlm_attention_bwd_dkv_general": wavlm_attention_bwd_dkv_general,
     "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
     "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
+    "pos_conv_dgrad": PosConvFn,
 }
 
 
@@ -64,6 +69,7 @@ __all__ = [
     "LAUNCH_COUNTERS",
     "FlashAttentionFn",
     "PackedAttentionFn",
+    "PosConvFn",
     "WavLMAttentionFn",
     "dropout_keep_mask",
     "dropout_threshold",

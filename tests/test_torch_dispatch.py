@@ -23,7 +23,8 @@ import dphubert_torch as pt
 from dphubert_torch.train import DistillConfig, init_train_state, make_train_step, train
 from dphubert_torch.train import trainer as t_trainer
 from dphubert_torch.train.checkpointing import load_train_state
-from dphubert_torch.train.distill_module import GraphedSteps, step_scalars
+from dphubert_torch.ops import kernel_launches
+from dphubert_torch.train.distill_module import GraphedSteps, make_grad_fn, step_scalars
 from dphubert_torch.train.optim import B1, B2, GROUPS
 
 PRUNE_FLAGS = dict(
@@ -289,6 +290,26 @@ def _nested(ranges, outer, inner):
     assert all(o[1] <= i[1] <= i[2] <= o[2] for o, i in zip(outs, ins))
 
 
+@pytest.mark.parametrize("call,added", [("grad_fn", 1), ("group_of_2", 2), ("no_grad", 0)])
+def test_pos_conv_dgrad_counts_each_student_backward(call, added):
+    """``pos_conv_dgrad`` counts the pos conv's input gradients: one a
+    student's backward (the teacher's forward runs without grad), one a
+    step of a K = 2 group, none for a forward without grad."""
+    teacher, student = models()
+    cfg = config()
+    state, tx = init_train_state(student=student, cfg=cfg, teacher_embed_dim=128, device="cpu")
+    wave = (0.1 * np.random.default_rng(0).standard_normal((2, 2, 3200))).astype(np.float32)
+    n = kernel_launches()["pos_conv_dgrad"]
+    if call == "grad_fn":
+        make_grad_fn(teacher, cfg)(state, (wave[0], None))
+    elif call == "group_of_2":
+        make_train_step(teacher, cfg, tx, steps_per_call=2)(state, (wave, None))
+    else:
+        with torch.no_grad():
+            state.student.extract_features(torch.from_numpy(wave[0]))
+    assert kernel_launches()["pos_conv_dgrad"] == n + added
+
+
 def test_feed_and_dispatch_spans_close_before_the_consumer_runs():
     """Three K = 2 groups through ``_device_prefetch`` and ``GraphedSteps``
     on the CPU: one ``feed.h2d`` a group, each closed before the
@@ -361,6 +382,7 @@ def _graph_against_eager(accum_grad, lengths, remat=False):
     # the tally: one capture's launches, run again by each of two replays
     captured = GraphedSteps.captured
     assert captured and captured.get("packed_attention_fwd", 0) > 0
+    assert captured["pos_conv_dgrad"] == 4  # a student backward a step
     assert GraphedSteps.replays == 2
     assert GraphedSteps.replayed == {k: 2 * v for k, v in captured.items()}
     return group

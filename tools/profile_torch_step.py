@@ -16,10 +16,13 @@ final_distill``, the final-distill step
 every attention sublayer on, ``use_reg=False`` in bf16, B = 5 clips of
 249,920 samples: its 11- and 9-head layers take the flash route); warms it
 for two steps,
-then runs ``--steps`` steps under ``torch.profiler`` and prints one JSON object: the wall time of a
-step, the card's busy time in it (the union of the kernels' intervals), and
-the device time of each kernel family and of the top kernels by name.  The
-JSON also goes to ``--out`` (default ``build/profile_torch_step.json``).
+then runs ``--steps`` steps under ``torch.profiler`` (with ``record_shapes``) and prints one
+JSON object: the wall time of a step, the card's busy time in it (the union
+of the kernels' intervals), the device time of each kernel family and of
+the top kernels by name, and for each ``aten::convolution_backward`` of the
+last step the shapes it was called with and the device time of each kernel
+launched under it.  The JSON also goes to ``--out`` (default
+``build/profile_torch_step.json``).
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -49,6 +52,17 @@ PRUNE_FLAGS = dict(
     encoder_prune_feed_forward_intermediate=True,
     encoder_prune_feed_forward_layer=True,
 )
+
+
+def _kernels_ms(event, out: dict) -> dict:
+    """Device ms of each kernel launched under ``event``, by name."""
+    for k in event.kernels:
+        out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+    for child in event.cpu_children:
+        _kernels_ms(child, out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("hubert_base", "wavlm_base", "wav2vec2_large"),
@@ -94,7 +108,8 @@ def main() -> int:
         step(state, batch)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             step(state, batch)
@@ -102,6 +117,8 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     dev = device_breakdown(prof, steps=args.steps)
     busy_ms = dev["busy_ms"]
+    conv_bwd = [e for e in prof.events() if e.name == "aten::convolution_backward"]
+    conv_bwd = conv_bwd[len(conv_bwd) * (args.steps - 1) // args.steps:]  # the last step's
     result = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "model": args.model,
         "step": args.step, "remat": args.remat, "steps": args.steps, "batch": shape,
@@ -113,6 +130,10 @@ def main() -> int:
         "families_ms_per_step": dev["families_ms"],
         "top_kernels": [{"name": k["name"][:120], "ms_per_step": k["ms"],
                          "calls_per_step": k["calls"]} for k in dev["top"]],
+        "convolution_backward": [
+            {"input_shapes": e.input_shapes,
+             "kernels_ms": dict(sorted(_kernels_ms(e, {}).items(), key=lambda kv: -kv[1]))}
+            for e in conv_bwd],
     }
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
