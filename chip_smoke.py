@@ -1157,11 +1157,13 @@ def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
     """Kernel launches of one pass of a model at L frames, from the routing
     rules: a forward per attention layer, and its backward kernels with
     ``backward``; with ``remat`` (and ``backward``) each layer's forward
-    runs again in the backward's recompute; with ``backward`` the pos
-    conv's input gradient once as a forward conv (``pos_conv_dgrad``).  A WavLM model whose layer 0 keeps its attention (and so
-    the bias table) takes the WavLM kernels in every attention layer, on
-    the route ``wavlm_route`` gives (read at the call, as the model reads
-    it); every other layer takes the packed or flash route."""
+    runs again in the backward's recompute, and every layer counts one
+    ``remat_layer``; with ``backward`` the pos conv's input gradient once
+    as a forward conv (``pos_conv_dgrad``).  A WavLM model whose layer 0
+    keeps its attention (and so the bias table) takes the WavLM kernels in
+    every attention layer, on the route ``wavlm_route`` gives (read at the
+    call, as the model reads it); every other layer takes the packed or
+    flash route."""
     counts = dict.fromkeys(WRAPPERS, 0)
     wavlm_bias = spec.is_wavlm and spec.layers[0].attention is not None
     for layer in spec.layers:
@@ -1183,6 +1185,7 @@ def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
             for name in bwd:
                 counts[name] += 1
     counts["pos_conv_dgrad"] = int(backward)
+    counts["remat_layer"] = len(spec.layers) if backward and remat else 0
     return counts
 
 
@@ -2761,7 +2764,8 @@ def phase_large_train(converted) -> dict:
                               (1, model_launches(state.student.spec, L, True, remat=remat)))
         want = dict.fromkeys(WRAPPERS, 0)
         want.update(packed_attention_fwd=72 if remat else 48, packed_attention_bwd_dq=24,
-                    packed_attention_bwd_dkv=24, pos_conv_dgrad=1)
+                    packed_attention_bwd_dkv=24, pos_conv_dgrad=1,
+                    remat_layer=24 if remat else 0)
         check(per_step == want, f"Large remat={remat}: launches per step {per_step}")
         label = "large_train_remat" if remat else "large_train"
         state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,

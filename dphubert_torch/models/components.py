@@ -67,6 +67,7 @@ from ..configs import (
     FeedForwardSpec,
     ModelSpec,
 )
+from ..ops import RematLayerCount
 from ..ops.attention_common import fold_dropout_seed
 from ..ops.flash_attention import flash_attention_qkv
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
@@ -833,9 +834,11 @@ def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias
     the step where a step without remat leaves it.  Inside a CUDA graph
     capture the recompute draws from its own generator of the group's
     ``RematReplay`` instead (``remat_replay``), which each replay sets to
-    the same numbers.  WavLM's position bias is an output of layer 0's
-    checkpointed call and an input of every later one, so every layer's
-    bias gradient still flows into layer 0's table."""
+    the same numbers.  Each recompute counts one in
+    ``ops.RematLayerCount.launches`` (a capture's once, its replays not).
+    WavLM's position bias is an output of layer 0's checkpointed call and
+    an input of every later one, so every layer's bias gradient still
+    flows into layer 0's table."""
     replay = getattr(_remat, "replay", None)
     capturing = (generator is not None and generator.device.type == "cuda"
                  and torch.cuda.is_current_stream_capturing())
@@ -856,6 +859,8 @@ def remat_layer(layer: EncoderLayer, x, lengths, gates, generator, position_bias
 
     def run(x, position_bias):
         calls[0] += 1
+        if calls[0] > 1:
+            RematLayerCount.launches += 1
         if state is None or calls[0] == 1:
             return layer(x, lengths, gates, generator, position_bias)
         found = get()

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain version,
-and the positional conv's autograd function (``PosConvFn``)."""
+the positional conv's autograd function (``PosConvFn``), and the launch
+counters of all of them."""
 
 from .attention_common import dropout_keep_mask, dropout_threshold
 from .flash_attention import (
@@ -38,10 +39,21 @@ from .wavlm_attention import (
     wavlm_route,
 )
 
+
+class RematLayerCount:
+    """``models.components.remat_layer`` counts in ``launches`` each
+    checkpointed encoder layer whose forward a backward recomputes, on any
+    device.  No kernel of its own: a count that a trace of replayed graphs,
+    which carry no annotations, can be checked against."""
+
+    launches = 0
+
+
 # every kernel's wrapper by the kernel's name; each wrapper's ``launches``
 # counts its launches (a CUDA graph's capture counts once, its replays not);
 # ``pos_conv_dgrad`` counts the pos conv's input gradients taken as forward
-# convs (cuDNN's kernels, not the port's)
+# convs (cuDNN's kernels, not the port's), ``remat_layer`` the layers
+# recomputed under remat
 LAUNCH_COUNTERS = {
     "packed_attention_fwd": packed_attention,
     "flash_attention_fwd": flash_attention,
@@ -57,6 +69,7 @@ LAUNCH_COUNTERS = {
     "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
     "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
     "pos_conv_dgrad": PosConvFn,
+    "remat_layer": RematLayerCount,
 }
 
 
@@ -70,6 +83,7 @@ __all__ = [
     "FlashAttentionFn",
     "PackedAttentionFn",
     "PosConvFn",
+    "RematLayerCount",
     "WavLMAttentionFn",
     "dropout_keep_mask",
     "dropout_threshold",

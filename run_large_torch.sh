@@ -11,10 +11,16 @@
 # the step time (0.267 against 0.227 s) and saved half the memory (peak
 # 13.9 against 26.5 GB, one key reserving 19.2 against 32.3 GB) on an
 # NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase "large_graphs",
-# PERF.md section 6). Set REMAT=1 to trade that time for activation
-# memory (a larger SECONDS_PER_BATCH, or a smaller card). Without remat
-# all 12 batch shapes at 180 s a batch captured as 4-step graphs fit on
-# an H100 80GB (chip_smoke.py phase "graph_keys", PERF.md section 5).
+# PERF.md section 6). Those numbers are of the wav2vec2_large layout
+# (fairseq's libri960_big.pt: GroupNorm extractor, post-LN encoder). For
+# wav2vec2_large_lv60k (wav2vec_vox_new.pt: a LayerNorm after every conv,
+# pre-LN, the waveform normalised) with REMAT=1 at this script's 180 s a
+# batch, see the benchmark cell wav2vec2_large_lv60k.distill_remat
+# (PERF.md sections 4 and 5). Set REMAT=1 to trade that time for
+# activation memory (a larger SECONDS_PER_BATCH, or a smaller card).
+# Without remat all 12 batch shapes at 180 s a batch captured as 4-step
+# graphs fit on an H100 80GB (chip_smoke.py phase "graph_keys", PERF.md
+# section 5).
 # NPROC=n runs each training stage on n processes (run_torch.sh).
 set -euo pipefail
 
