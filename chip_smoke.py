@@ -138,6 +138,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 import dphubert_torch as pt
 from dphubert_torch.models.components import attention_route, output_lengths
@@ -162,6 +163,13 @@ from dphubert_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,
     flash_attention_reference,
+)
+from dphubert_torch.ops.norm import (
+    norm_bwd,
+    norm_bwd_reference,
+    norm_fwd,
+    norm_geometry,
+    norm_reference,
 )
 from dphubert_torch.ops.packed_attention import (
     _launch_fwd,
@@ -467,6 +475,127 @@ def phase_card() -> str:
               "wgmma_warnings": warnings})
     emit({"phase": "build", "wall_seconds_all": seconds})
     return smi
+
+
+# the norm kernels' cases at the distill cells' top rung (B = 10 x 15.62 s
+# Base, 11 Large): (label, shape, dim, affine_dim, transposed)
+NORM_CASES = (
+    ("encoder_base", (10, 780, 768), -1, -1, False),
+    ("encoder_large", (11, 780, 1024), -1, -1, False),
+    ("group_norm", (10, 512, 49983), 2, 1, False),
+    ("channel_layer_norm", (11, 512, 49983), 1, 1, False),
+    ("projection", (10, 780, 512), -1, -1, True),
+)
+
+
+def _norm_ptxas(report: str):
+    """(kernel, mangled entry, registers, spill bytes) per instantiation of
+    ``csrc/norm.cu``."""
+    rows = []
+    for block in report.split("Compiling entry function")[1:]:
+        entry = re.match(r"\s*'([^']+)'", block)
+        entry = entry.group(1) if entry else ""
+        kernel = re.search(r"norm_[a-z_]+", entry)
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        rows.append({"kernel": kernel.group(0) if kernel else entry, "entry": entry,
+                     "registers": int(regs.group(1)) if regs else None,
+                     "spill_stores_bytes": int(spills.group(1)) if spills else 0,
+                     "spill_loads_bytes": int(spills.group(2)) if spills else 0})
+    return rows
+
+
+def phase_norm_kernels() -> dict:
+    """The norm kernel pair (``ops/norm.py``, ``csrc/norm.cu``) at the
+    cells' shapes in bf16 (``NORM_CASES``): built (ptxas's registers and
+    spills: none may spill), held against the plain versions on the card (y
+    and dx within 2e-2 of their largest value, the float32 dweight and
+    dbias within 1e-3), and timed with CUDA events around a CUDA graph's
+    replay of each call (the card's time, without the Python wrapper's host
+    cost, which a single call at the encoder's shapes exceeds): the forward
+    and the backward, the plain versions, and the library's forward and
+    backward (``F.layer_norm``, ``F.group_norm`` through autograd; the port
+    never calls them).  Bound: one read of each input and one write of each
+    output, statistics included, at 3.35 TB/s."""
+
+    def graph_ms(fn, reps=25):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        ms = time_ms(graph.replay, reps=reps)
+        del graph
+        return ms
+
+    t0 = time.perf_counter()
+    _build.build(["norm"])
+    report = _build.build_reports.get("norm", {}).get("ptxas", "")
+    built = _norm_ptxas(report)
+    check(all(r["spill_stores_bytes"] == r["spill_loads_bytes"] == 0 for r in built),
+          f"norm kernels spill: {built}")
+    emit({"phase": "build", "source": "dphubert_torch/csrc/norm.cu",
+          "seconds": _build.build_reports.get("norm", {}).get("seconds"), "ptxas": built})
+    eps, bf16, rows = 1e-5, torch.bfloat16, {}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for label, shape, dim, affine_dim, transposed in NORM_CASES:
+        x = torch.randn(shape, device="cuda", generator=gen)
+        if transposed:  # (B, L, C) read through the strides of (B, C, L)
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        x = x.to(bf16)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(bf16)
+        c = shape[affine_dim]
+        w = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        geo = norm_geometry(x.shape, x.stride(), dim, affine_dim, x.element_size())
+        y, mean, rstd = norm_fwd(x, w, b, dim, affine_dim, eps)
+        dx, dw, db = norm_bwd(x, dy, w, mean, rstd, dim, affine_dim)
+        want_y, want_mean, want_rstd = norm_reference(x, w, b, dim, affine_dim, eps)
+        want = norm_bwd_reference(x, dy, w, want_mean, want_rstd, dim, affine_dim)
+        errs = {k: ((g.float() - v.float()).abs().max() / v.float().abs().max()).item()
+                for k, g, v in (("y", y, want_y), ("dx", dx, want[0]), ("dw", dw, want[1]),
+                                ("db", db, want[2]))}
+        check(errs["y"] <= 2e-2 and errs["dx"] <= 2e-2 and errs["dw"] <= 1e-3
+              and errs["db"] <= 1e-3, f"norm {label}: against the plain versions {errs}")
+        del want_y, want, dx, dw, db
+        nbytes, stats = x.numel() * x.element_size(), 8 * mean.numel()
+        fwd_ms = graph_ms(lambda: norm_fwd(x, w, b, dim, affine_dim, eps))
+        bwd_ms = graph_ms(lambda: norm_bwd(x, dy, w, mean, rstd, dim, affine_dim))
+        plain_fwd_ms = graph_ms(lambda: norm_reference(x, w, b, dim, affine_dim, eps), reps=5)
+        _, m, r = norm_reference(x, w, b, dim, affine_dim, eps)
+        plain_bwd_ms = graph_ms(lambda: norm_bwd_reference(x, dy, w, m, r, dim, affine_dim),
+                                reps=5)
+        del m, r
+        torch.cuda.empty_cache()
+        leaves = [x.detach().requires_grad_(), w.to(bf16).requires_grad_(),
+                  b.to(bf16).requires_grad_()]
+        if affine_dim % x.ndim == dim % x.ndim:  # over one dimension: F.layer_norm
+            def library():
+                return F.layer_norm(leaves[0].movedim(dim, -1), (c,), leaves[1],
+                                    leaves[2], eps).movedim(-1, dim)
+        else:  # GroupNorm(C, C)
+            def library():
+                return F.group_norm(leaves[0], c, leaves[1], leaves[2], eps)
+        library_fwd_ms = graph_ms(lambda: library().detach())
+        # the backward inside the graph with its forward (a backward runs on
+        # its forward's stream), less the forward
+        library_bwd_ms = graph_ms(
+            lambda: torch.autograd.grad(library(), leaves, dy)) - library_fwd_ms
+        del leaves
+        rows[label] = {
+            "phase": "norm_kernels", "case": label, "shape": list(shape), "dim": dim,
+            "affine_dim": affine_dim, "layout": "transposed" if transposed else "contiguous",
+            "dtype": "bfloat16", "route": geo.route, "errors": errs,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_bound_ms": (2 * nbytes + stats) / PEAK_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": (3 * nbytes + stats) / PEAK_BYTES_PER_S * 1e3,
+            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+            "library_fwd_ms": library_fwd_ms, "library_bwd_ms": library_bwd_ms}
+        emit(rows[label])
+        del x, dy, y, mean, rstd
+        torch.cuda.empty_cache()
+    emit({"phase": "norm_kernels_done", "seconds": time.perf_counter() - t0})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1186,7 +1315,27 @@ def model_launches(spec, L: int, backward: bool, remat: bool = False) -> dict:
                 counts[name] += 1
     counts["pos_conv_dgrad"] = int(backward)
     counts["remat_layer"] = len(spec.layers) if backward and remat else 0
+    counts.update(norm_launches(spec, backward, remat))
     return counts
+
+
+def norm_launches(spec, backward: bool = False, remat: bool = False,
+                  final: bool = False) -> dict:
+    """``norm_fwd`` and ``norm_bwd`` launches of one pass of a model, one a
+    ``_layer_norm`` call: the extractor's norms, the projection's, the
+    transformer's (before the first layer in the post-LN layout; in the
+    pre-LN one after the last, with ``final``: ``Transformer.forward``) and
+    each layer's two (a pre-LN layer's beside the sublayers it keeps); with
+    ``backward`` each again in the backward, and with ``remat`` the layers'
+    again in the recompute.  The waveform's normalisation runs the kernel
+    only on a batch without lengths, which no pass counted here is with a
+    model that normalises."""
+    layers = sum((layer.attention is not None) + (layer.feed_forward is not None)
+                 if layer.layer_norm_first else 2 for layer in spec.layers)
+    n = (sum(c.norm is not None for c in spec.conv_layers) + 1 + layers
+         + (1 if spec.transformer_layer_norm_first else int(final)))
+    return {"norm_fwd": n + (layers if backward and remat else 0),
+            "norm_bwd": n if backward else 0}
 
 
 def add_counts(*terms) -> dict:
@@ -1295,23 +1444,112 @@ def gate_draws(spec, student, seed: int) -> dict:
     return u
 
 
+class _SignedAbs(torch.autograd.Function):
+    """``x.abs()`` whose gradient takes ``sign`` in place of x's own."""
+
+    @staticmethod
+    def forward(ctx, x, sign):
+        ctx.save_for_backward(sign)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (sign,) = ctx.saved_tensors
+        return grad * sign, None
+
+
+class AbsInputs(TorchFunctionMode):
+    """Inside the block every ``abs`` (the step's only one is the L1
+    term's, one a distilled layer) keeps a host copy of its input, in call
+    order, in ``inputs``.  Given another pass's ``inputs`` (``signs_of``),
+    each ``abs`` keeps its own value and takes their signs in its gradient.
+    ``float64``: ``Tensor.float()`` leaves a float64 tensor as it is, so a
+    float64 model stays float64 through the step's fp32 casts."""
+
+    def __init__(self, signs_of=None, float64: bool = False):
+        super().__init__()
+        self.inputs, self.signs_of, self.float64 = [], signs_of, float64
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.abs, torch.Tensor.abs):
+            x = args[0]
+            self.inputs.append(x.detach().to("cpu", copy=True))
+            if self.signs_of is not None:
+                ref = self.signs_of[len(self.inputs) - 1]
+                check(ref.shape == x.shape, f"abs input {tuple(x.shape)} against {tuple(ref.shape)}")
+                return _SignedAbs.apply(x, torch.sign(ref).to(x.device, x.dtype))
+        elif self.float64 and func is torch.Tensor.float and args[0].dtype == torch.float64:
+            return args[0]
+        return func(*args, **kwargs)
+
+
+def l1_flips(cpu, card, witness=None, listed: int = 8) -> dict:
+    """The L1 residuals whose sign differs between the CPU's pass and the
+    card's (both fp32, lists of ``AbsInputs.inputs``): how many, the largest
+    card-CPU gap of any residual, and the first ``listed`` with both values
+    and, from ``witness`` (a float64 CPU pass of the same step), the
+    residual's value in float64 and the larger gap of either fp32 pass to
+    it; a flipped residual whose float64 value lies farther from 0 than
+    that gap is a fault of one device, not rounding."""
+    gap = max(((a - b).abs().max().item() for a, b in zip(cpu, card)), default=0.0)
+    row = {"residuals": sum(a.numel() for a in cpu), "flipped": 0, "cpu_card_gap_max": gap,
+           "listed": []}
+    if witness is not None:
+        row["fp32_fp64_gap_max"] = max((a.double() - w).abs().max().item()
+                                       for x in (cpu, card) for a, w in zip(x, witness))
+    for term, (a, b) in enumerate(zip(cpu, card)):
+        flipped = (torch.sign(a) != torch.sign(b)).nonzero().tolist()
+        row["flipped"] += len(flipped)
+        for index in flipped[:max(listed - len(row["listed"]), 0)]:
+            entry = {"term": term, "index": index, "cpu": a[tuple(index)].item(),
+                     "card": b[tuple(index)].item()}
+            if witness is not None:
+                entry["fp64"] = witness[term][tuple(index)].item()
+            row["listed"].append(entry)
+    return row
+
+
 def step_check(label: str, teacher, student, cfg: DistillConfig, batch, gate_u=None) -> dict:
     """One distill step's loss, metrics and gradients at full width, dropout
     off: (a) fp32 on the card against the CPU, (b) bf16 against fp32 on the
-    card, with the same inputs (and gate draws) everywhere."""
-    out = {}
-    for device in ("cuda", "cpu"):
+    card, with the same inputs (and gate draws) everywhere.
+
+    The L1 term's gradient is sign(residual) / N: a residual within
+    round-off of 0 can take one sign on the card and the other on the CPU,
+    and then moves the gradients by a step that no tolerance for rounding
+    covers.  So in (a) the CPU runs first and the card's L1 term takes the
+    CPU's signs in its gradient (``AbsInputs``), and the residuals whose
+    sign differs are listed (``l1_flips``), with a float64 CPU pass as the
+    witness of their value where any differ."""
+    out, signs = {}, None
+    for device in ("cpu", "cuda"):
         t = teacher if device == "cuda" else copy.deepcopy(teacher).to("cpu")
         state, _ = init_train_state(student=student, cfg=cfg, teacher_embed_dim=768,
                                     device=device)
         t0 = time.perf_counter()
-        metrics, grads = make_grad_fn(t, cfg)(state, batch, gate_u=gate_u)
+        with AbsInputs(signs_of=signs) as residuals:
+            metrics, grads = make_grad_fn(t, cfg)(state, batch, gate_u=gate_u)
         torch.cuda.synchronize()
+        signs = residuals.inputs
         out[device] = ({k: v.item() for k, v in metrics.items()},
                        {k: g.detach().cpu() for k, g in grads.items()},
-                       time.perf_counter() - t0)
+                       time.perf_counter() - t0, residuals.inputs)
         del state, t
-    (mc, gc, sec_c), (mh, gh, sec_h) = out["cuda"], out["cpu"]
+    (mc, gc, sec_c, res_c), (mh, gh, sec_h, res_h) = out["cuda"], out["cpu"]
+    flips = l1_flips(res_h, res_c)
+    if flips["flipped"]:
+        cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+        state, _ = init_train_state(student=copy.deepcopy(student).to("cpu", torch.float64),
+                                    cfg=cfg64, teacher_embed_dim=768, device="cpu")
+        with AbsInputs(float64=True) as witness:
+            make_grad_fn(copy.deepcopy(teacher).to("cpu", torch.float64), cfg64)(
+                state, batch, gate_u=gate_u)
+        del state
+        flips = l1_flips(res_h, res_c, witness.inputs)
+        for entry in flips["listed"]:
+            check(abs(entry["fp64"]) <= flips["fp32_fp64_gap_max"],
+                  f"{label}: an L1 residual flips sign between card and CPU far from 0: {entry}")
     metric_err = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
     for k in mh:
         check(np.isfinite(mc[k]), f"{label} fp32: metric {k} not finite")
@@ -1350,7 +1588,8 @@ def step_check(label: str, teacher, student, cfg: DistillConfig, batch, gate_u=N
                                  "zero_grad_err_max_over_global_norm": max(zero.values(), default=0.0),
                                  "card_s": sec_c, "cpu_s": sec_h,
                                  "metric_tol": TRAIN_FP32_METRIC_TOL,
-                                 "grad_tol": TRAIN_FP32_GRAD_TOL},
+                                 "grad_tol": TRAIN_FP32_GRAD_TOL,
+                                 "l1_signs": flips},
             "bf16_vs_fp32_card": {"loss_rel_err": loss_rel, "grad_cosine": cos,
                                   "grad_cosine_min_per_param": min(per_param.values()),
                                   "loss_tol": TRAIN_BF16_LOSS_TOL,
@@ -1361,22 +1600,17 @@ def step_check(label: str, teacher, student, cfg: DistillConfig, batch, gate_u=N
 def phase_train_check(family: str = "hubert", label: str = "train_check") -> dict:
     """The stage-1 step (gated student) on a small batch: 2 clips of 2 s,
     lengths 2 s and 1.5 s, the same gate draws everywhere; ``family``
-    "wavlm" is the DPWavLM step.
-
-    The DPWavLM check runs without the L1 term (``l1_weight=0``: cosine and
-    the Lagrangian): the L1 gradient is sign(residual) / N, and card and CPU
-    differ in the residuals by up to 1.4e-5, so a residual that close to 0
-    flips sign between them.  Measured (chip run, WavLM Base at this
-    batch): one flip among 608,256 residuals moved the last layer's
-    gradient by 0.3% and the bias table's by 0.17%; without the L1 term
-    every gradient agreed within 1.5e-5.  HuBERT's check at the same batch
-    has no flip and keeps the term; the L1 code is shared."""
+    "wavlm" is the DPWavLM step.  Both take the recipe's loss, the L1 term
+    included, with the card's L1 signs taken from the CPU (``step_check``):
+    card and CPU differ in the residuals by about 1e-5, and one residual
+    that close to 0 flipping sign moved gate gradients by up to 1.8e-3 of
+    their norm (HuBERT) and the last layer's by 0.3% (WavLM)."""
     teacher, student = distill_models("cuda", family, **NO_DROPOUT)
     u = gate_draws(student.spec, student, seed=3)
     rng = np.random.default_rng(4)
     wave = (0.1 * rng.standard_normal((2, 32000))).astype(np.float32)
     batch = (wave, np.array([32000, 24000], np.int32))
-    cfg = DistillConfig() if family == "hubert" else DistillConfig(l1_weight=0.0)
+    cfg = DistillConfig()
     row = {"phase": label, "family": family,
            "batch": "2 clips of 2 s, lengths (32000, 24000)", "l1_weight": cfg.l1_weight,
            **step_check(label, teacher, student, cfg, batch, gate_u=u)}
@@ -1390,8 +1624,9 @@ def phase_wavlm_general_check() -> dict:
     every WavLM layer runs the general forward, dq, dbias and dkv entries.
     Launch counts are set to 0 just before and read just after: the card's
     fp32 and bf16 passes each launch one teacher forward and one student
-    forward and backward; ``pos_conv_dgrad`` also counts the CPU pass's
-    backward."""
+    forward and backward; ``pos_conv_dgrad`` also counts the CPU passes'
+    backward: the float32 one, and the float64 witness's where an L1
+    residual flipped sign (``step_check``)."""
     os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"] = "0"
     try:
         reset_launch_counts()
@@ -1403,7 +1638,7 @@ def phase_wavlm_general_check() -> dict:
     finally:
         del os.environ["DPHUBERT_WAVLM_SINGLE_BLOCK"]
     want = {k: 2 * v for k, v in per_pass.items()}
-    want["pos_conv_dgrad"] += 1
+    want["pos_conv_dgrad"] += 1 + ("fp32_fp64_gap_max" in row["fp32_card_vs_cpu"]["l1_signs"])
     check(counts == want, f"wavlm general route: launches {counts}, expected {want}")
     check(want["wavlm_attention_bwd_dbias"] == 24 and want["wavlm_attention_fwd"] == 0,
           f"wavlm general route per pass {per_pass}")
@@ -1493,11 +1728,14 @@ def phase_train(family: str = "hubert", label: str = "") -> dict:
     L = int(output_lengths(teacher.spec, torch.tensor([T]))[0])
     per_step = add_counts((1, model_launches(teacher.spec, L, False)),
                           (1, model_launches(state.student.spec, L, True)))
+    # 27 norms a Base model's pass: GroupNorm, projection, encoder, 12 x 2
     if family == "hubert":
         check(per_step["packed_attention_fwd"] == 24 and per_step["packed_attention_bwd_dq"] == 12
-              and per_step["flash_attention_fwd"] == 0, f"stage-1 launches per step {per_step}")
+              and per_step["flash_attention_fwd"] == 0 and per_step["norm_fwd"] == 54
+              and per_step["norm_bwd"] == 27, f"stage-1 launches per step {per_step}")
     else:
         want = dict.fromkeys(WRAPPERS, 0)
+        want.update(norm_fwd=54, norm_bwd=27)
         if wavlm_route(L) == "single":
             want.update(wavlm_attention_fwd=24, wavlm_attention_bwd_fused=12,
                         wavlm_attention_bwd_dkv=12, pos_conv_dgrad=1)
@@ -1726,8 +1964,9 @@ def phase_layerdrop(family: str) -> dict:
     counts = launch_counts()
     for h in hooks:
         h.remove()
-    check(counts == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}),
-          f"layerdrop {family}: launches {nonzero(counts)}, expected {n} x {fwd}")
+    norms = norm_launches(spec, final=True)
+    check(counts == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}, **norms),
+          f"layerdrop {family}: launches {nonzero(counts)}, expected {n} x {fwd}, {norms}")
     # a dropped layer passes its input on unchanged; the next layer reads it
     identity = {i: torch.equal(ins[i + 1], ins[i]) for i in range(n - 1)}
     check(all(identity[i] == (i in LAYERDROP_DROPPED) for i in identity),
@@ -1756,7 +1995,7 @@ def phase_layerdrop(family: str) -> dict:
     torch.cuda.synchronize()
     bwd_counts = launch_counts()
     want = dict(dict.fromkeys(WRAPPERS, 0), **{fwd: n}, **dict.fromkeys(bwd, n),
-                pos_conv_dgrad=1)
+                pos_conv_dgrad=1, **norm_launches(spec, backward=True, final=True))
     check(bwd_counts == want, f"layerdrop {family} backward: launches {nonzero(bwd_counts)}")
     check(all(g is None or bool(torch.isfinite(g).all()) for g in grads),
           f"layerdrop {family}: non-finite gradient")
@@ -1778,7 +2017,8 @@ def phase_layerdrop(family: str) -> dict:
         check(bool(torch.isfinite(y).all()), f"layerdrop {family}: non-finite output")
         del y
     timed = launch_counts()
-    check(timed == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: 7 * n}),
+    check(timed == dict(dict.fromkeys(WRAPPERS, 0), **{fwd: 7 * n},
+                        **{k: 7 * v for k, v in norms.items()}),
           f"layerdrop {family}: timed launches {nonzero(timed)}")
     row = {"phase": "layerdrop", "family": family, "layer_drop": LAYERDROP_RATE,
            "dropped": list(LAYERDROP_DROPPED), "check_batch": "2 clips of 2 s, lengths "
@@ -2763,9 +3003,11 @@ def phase_large_train(converted) -> dict:
         per_step = add_counts((1, model_launches(teacher.spec, L, False)),
                               (1, model_launches(state.student.spec, L, True, remat=remat)))
         want = dict.fromkeys(WRAPPERS, 0)
+        # 51 norms a pass (GroupNorm, projection, encoder, 24 x 2), 48 recomputed
         want.update(packed_attention_fwd=72 if remat else 48, packed_attention_bwd_dq=24,
                     packed_attention_bwd_dkv=24, pos_conv_dgrad=1,
-                    remat_layer=24 if remat else 0)
+                    remat_layer=24 if remat else 0, norm_fwd=150 if remat else 102,
+                    norm_bwd=51)
         check(per_step == want, f"Large remat={remat}: launches per step {per_step}")
         label = "large_train_remat" if remat else "large_train"
         state, fields, _ = timed_steps(label, make_train_step(teacher, cfg, tx), state, batch,
@@ -3253,8 +3495,9 @@ def parallel_card_job(payload: dict, first) -> dict:
                     if family == "hubert" else
                     ("wavlm_attention_fwd", ("wavlm_attention_bwd_fused",
                                              "wavlm_attention_bwd_dkv")))
-        check(row["launches_per_step"] == {fwd: 24, **dict.fromkeys(bwd, 12), "pos_conv_dgrad": 1}
-              and row["teacher_forward_launches"] == {fwd: 12},
+        check(row["launches_per_step"] == {fwd: 24, **dict.fromkeys(bwd, 12), "pos_conv_dgrad": 1,
+                                           "norm_fwd": 54, "norm_bwd": 27}
+              and row["teacher_forward_launches"] == {fwd: 12, "norm_fwd": 27},
               f"{what}: launches {row['launches_per_step']}, teacher "
               f"{row['teacher_forward_launches']}")
         row["student_heads_per_layer"] = sorted({a.heads for a in state.student.modules()
@@ -3373,6 +3616,8 @@ def main() -> int:
         laps[name] = time.perf_counter() - t_start - sum(laps.values())
 
     lap("build")
+    phase_norm_kernels()
+    lap("norm_kernels")
     base = pt.hubert_base(device="cuda", generator=torch.Generator().manual_seed(0))
     base_spec = base.spec
     kernels = phase_kernels(base.spec)

@@ -8,7 +8,9 @@ renaming, and the TPU package's parameter tree flattens to the same keys.
 Numerics follow the TPU package's component layer:
   * LayerNorm and GroupNorm take fp32 statistics; fp32 inputs use the
     two-pass formula, sub-fp32 inputs the one-pass E[x^2] - E[x]^2 form with
-    fp32 accumulation, and the result is cast back to the input dtype;
+    fp32 accumulation, and the result is cast back to the input dtype; on
+    the card one hand-written kernel a pass computes them, two-pass for
+    every dtype (``ops/norm.py``);
   * weights are cast to the activation dtype at every call;
   * GELU is the exact (erf) form;
   * attention runs in a hand-written CUDA kernel on the card and in the
@@ -70,6 +72,7 @@ from ..configs import (
 from ..ops import RematLayerCount
 from ..ops.attention_common import fold_dropout_seed
 from ..ops.flash_attention import flash_attention_qkv
+from ..ops.norm import layer_norm
 from ..ops.packed_attention import packed_attention_qkv, packed_num_groups
 from ..ops.pos_conv import PosConvFn
 from ..ops.wavlm_attention import wavlm_attention_qkv
@@ -81,7 +84,10 @@ LN_EPS = 1e-5
 def _layer_norm(x, weight, bias, dim: int = -1, affine_dim: Optional[int] = None):
     """Normalise over ``dim`` with fp32 statistics and apply the affine along
     ``affine_dim`` (default ``dim``); GroupNorm with one group per channel is
-    the (stats=time, affine=channel) case."""
+    the (stats=time, affine=channel) case.  On the card one kernel a pass
+    (``ops/norm.py``); on the CPU the TPU package's formulas below."""
+    if x.device.type == "cuda":
+        return layer_norm(x, weight, bias, dim, affine_dim, LN_EPS)
     if affine_dim is None:
         affine_dim = dim
     shape = [1] * x.ndim

@@ -22,6 +22,7 @@ from .packed_attention import (
     packed_attention_reference,
     packed_num_groups,
 )
+from .norm import NormFn, layer_norm, norm_bwd, norm_fwd
 from .pos_conv import PosConvFn
 from .wavlm_attention import (
     WavLMAttentionFn,
@@ -68,6 +69,8 @@ LAUNCH_COUNTERS = {
     "wavlm_attention_bwd_dkv_general": wavlm_attention_bwd_dkv_general,
     "wavlm_attention_bwd_dq": wavlm_attention_bwd_dq,
     "wavlm_attention_bwd_dbias": wavlm_attention_bwd_dbias,
+    "norm_fwd": norm_fwd,
+    "norm_bwd": norm_bwd,
     "pos_conv_dgrad": PosConvFn,
     "remat_layer": RematLayerCount,
 }
@@ -81,6 +84,7 @@ def kernel_launches() -> dict:
 __all__ = [
     "LAUNCH_COUNTERS",
     "FlashAttentionFn",
+    "NormFn",
     "PackedAttentionFn",
     "PosConvFn",
     "RematLayerCount",
@@ -94,6 +98,9 @@ __all__ = [
     "flash_attention_qkv",
     "flash_attention_reference",
     "kernel_launches",
+    "layer_norm",
+    "norm_bwd",
+    "norm_fwd",
     "packed_attention",
     "packed_attention_bwd_dkv",
     "packed_attention_bwd_dq",

@@ -132,7 +132,10 @@ def device_breakdown(prof, steps: int = 1, top: int = 25) -> dict:
     them, so these sum to ``busy_ms``), and the ``top`` kernels by time
     (``name``, ``ms``, ``busy_ms``, ``calls``).  Raises if the profile holds
     no device activity."""
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the card's timeline also holds the ranges (``span``, record_function)
+    # as annotations, which are no device work
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]

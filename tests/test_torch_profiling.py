@@ -93,9 +93,10 @@ def test_family_and_union_us():
         2.5, 1.5, 1.5, 0.5, 1.0, 1.0]
 
 
-def _kernel(name, start, end, device=DeviceType.CUDA):
+def _kernel(name, start, end, device=DeviceType.CUDA, annotation=False):
     rng = SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
-    return SimpleNamespace(name=name, device_type=device, time_range=rng)
+    return SimpleNamespace(name=name, device_type=device, time_range=rng,
+                           is_user_annotation=annotation)
 
 
 def test_device_breakdown_reads_busy_time_families_and_top_kernels():
@@ -125,3 +126,19 @@ def test_device_breakdown_reads_busy_time_families_and_top_kernels():
                            "busy_ms": pytest.approx(0.1), "calls": 0.5}]
     with pytest.raises(RuntimeError, match="no device activity"):
         t_prof.device_breakdown(SimpleNamespace(events=lambda: events[:1]))
+
+
+def test_device_breakdown_leaves_out_the_ranges_annotations():
+    """A range (``span``, ``record_function``) shows on the card's timeline
+    as a user annotation that spans its kernels: it is no device work, so
+    busy time, kernel time, launches and families read the kernels alone."""
+    kernels = [_kernel("norm_fwd_rows_warp", 100, 200), _kernel("gemm_bf16", 300, 350)]
+    ranges = [_kernel("norm.fwd", 90, 210, annotation=True),
+              _kernel("step.replay", 0, 1000, annotation=True)]
+    alone = t_prof.device_breakdown(SimpleNamespace(events=lambda: kernels))
+    out = t_prof.device_breakdown(SimpleNamespace(events=lambda: kernels + ranges))
+    assert out == alone
+    assert out["busy_ms"] == pytest.approx(0.15) and out["launches"] == 2
+    assert [row["name"] for row in out["top"]] == ["norm_fwd_rows_warp", "gemm_bf16"]
+    with pytest.raises(RuntimeError, match="no device activity"):
+        t_prof.device_breakdown(SimpleNamespace(events=lambda: ranges))

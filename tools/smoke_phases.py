@@ -2,8 +2,8 @@
 """Run chosen phases of ``chip_smoke.py`` on one card, and the probe of
 how deterministic the distill step is.
 
-    python3 tools/smoke_phases.py [determinism] [train] [final] [wavlm] [layerdrop] [large]
-                                  [ckpt] [pipeline] [parallel]
+    python3 tools/smoke_phases.py [determinism] [norm] [checks] [train] [final] [wavlm]
+                                  [layerdrop] [large] [ckpt] [pipeline] [parallel]
 
 The kernels are built first (phase "card"); then, in the order given:
 
@@ -13,6 +13,12 @@ The kernels are built first (phase "card"); then, in the order given:
   moments), with cuDNN's default algorithms, with its deterministic ones,
   and with PyTorch's deterministic algorithms too; one JSON line each
   with the tensors that differ and the step times;
+* ``norm``: the norm kernels against their plain versions at the distill
+  cells' shapes, timed beside the plain versions and the library's
+  (phase "norm_kernels");
+* ``checks``: the step checks, fp32 card against CPU and bf16 against
+  fp32 (phases "train_check", "wavlm_train_check", "wavlm_general_check"
+  with its launches, "final_distill_check");
 * ``train``, ``final``, ``wavlm``, ``large``: the smoke's timed steps
   with their "graph_train" phases (stage 1 with its "graph_keys" and its
   "profile" too, the final distill, DPWavLM on the single and then the
@@ -108,6 +114,13 @@ def main(argv) -> int:
         if name == "determinism":
             determinism("hubert")
             determinism("wavlm")
+        elif name == "norm":
+            cs.phase_norm_kernels()
+        elif name == "checks":
+            cs.phase_train_check()
+            cs.phase_train_check("wavlm", "wavlm_train_check")
+            cs.phase_wavlm_general_check()
+            cs.phase_final_distill_check()
         elif name == "train":
             cs.phase_train()
         elif name == "final":
